@@ -27,6 +27,11 @@ def pytest_configure(config):
         "device: requires a real accelerator backend (TPU/GPU); "
         "auto-skipped when JAX only sees the CPU",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: runs a hand-written CUDA kernel of repro_torch on the card; "
+        "skipped where torch sees no CUDA device",
+    )
 
 
 def pytest_collection_modifyitems(config, items):
