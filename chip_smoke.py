@@ -26,13 +26,37 @@ script exits non-zero without the last line):
 5. readers   two reader threads repeat queries on their own pinned views
              while the main thread commits
 6. triangles triangle_count_view on the card == triangle_count_fast on host
-7. the ``kernels`` line, then the ``ok`` line.
+7. model kernels  flash_decode and embedding_bag against their plain
+             versions at the model paths' shapes, timed as in phase 2
+8. lm_serve  Qwen2.5-14B at full width: (a) ``repro_torch.launch.serve``'s
+             ``main`` with its defaults (f32, batch 4, prompt 32 fed token
+             by token, 32 decode tokens, max_seq 128), then one step of the
+             kernel route against a plain route at rtol=atol=3e-4;
+             (b) decode_32k in bf16: a cache of 32,768 positions filled to
+             position 32,759 from the seed, then one checked step: each of
+             its 48 flash_decode launches against the plain version on the
+             same inputs at rtol=2e-4, atol=2e-5, and its logits against
+             the plain route's within 10% of their largest magnitude (48
+             bf16 layers amplify single rounding flips); two controls of
+             that limit on the same step: one bf16 ulp on one element of
+             layer 0's attention output must stay inside it, heads grouped
+             h % KV (a planted fault) must fall outside; then 8 greedy
+             tokens, timed, with 48 flash_decode launches per step, and one
+             more under the profiler for the device's idle share
+9. recsys_serve  BST at its published config, the 4,194,304 x 32 item
+             table on the card: forward at serve_p99 (512) and serve_bulk
+             (262,144), user_tower + retrieval_scores at retrieval_cand
+             (1,000,000 candidates), each against the plain route
+10. the ``kernels`` line, then the ``ok`` line.
 
-The launch counters are set to 0 just before each of phases 3-6 and read
-just after it; every kernel a phase calls must have launched in it.  The
-``kernels`` line's ``launches`` is phase 3's (the main path), and
-``launches_by_path`` holds all four phases'.  The comparisons of phase 2
-do not count.
+The launch counters are set to 0 just before each of phases 3-6, 8 and 9
+and read just after it; every kernel a phase calls must have launched in
+it.  The ``kernels`` line's ``launches`` is the count on each kernel's own
+path (phase 3 for the graph kernels, 8 for flash_decode, 9 for
+embedding_bag), and ``launches_by_path`` holds every phase's.  The
+comparisons of phases 2 and 7 do not count.  The one scale cut:
+decode_32k's global batch is 4, not 128, so that its cache and weights
+fit on one card.
 
 ``bound_ms`` counts the bytes the function needs on this run's data, not
 the whole tiles: a tile's live ids are a sorted prefix followed by
@@ -65,6 +89,13 @@ N_QUERIES = 4096  # present and as many absent edge-search pairs
 N_PAIRS = 8192  # intersect tile pairs (one sum_intersect batch)
 SPMM_PLAIN_ROWS = 16384  # tiles per plain-SpMM call: it materializes [N, B, d]
 LINE, SECTOR = 128, 32  # bytes: an L2 cache line and a DRAM sector
+LM_ARCH = "qwen2.5-14b"
+MODEL_SMOKE = False  # True takes the archs' SMOKE configs (CPU rehearsal)
+DECODE_SEQ = 32768  # decode_32k's cache length
+DECODE_BATCH = 4  # decode_32k's global batch is 128: cut to fit one card
+DECODE_STEPS = 8  # greedy tokens after the cache is filled to DECODE_SEQ - 8
+SERVE_BATCHES = (512, 262144)  # serve_p99, serve_bulk
+N_CANDIDATES = 1_000_000  # retrieval_cand
 
 KERNELS = {
     "leaf_search": ("src/repro_torch/csrc/leaf_search.cu",
@@ -75,7 +106,15 @@ KERNELS = {
                   "src/repro/kernels/spmm/kernel.py:102"),
     "intersect_count": ("src/repro_torch/csrc/intersect_count.cu",
                         "src/repro/kernels/intersect/kernel.py:55"),
+    "embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",
+                      "src/repro/kernels/embedding_bag/kernel.py:48"),
+    "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
+                     "src/repro/kernels/flash_decode/kernel.py:95"),
 }
+# the path whose launches the ``kernels`` line reports for each kernel
+KERNEL_PATH = {"leaf_search": "main", "leaf_scan_reduce": "main", "leaf_spmm": "main",
+               "intersect_count": "main", "embedding_bag": "recsys_serve",
+               "flash_decode": "lm_serve"}
 
 
 def emit(phase: str, **fields) -> None:
@@ -679,13 +718,407 @@ def phase_triangles(scale: int, seed: int, device) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phases 7-9: the model paths
+# ---------------------------------------------------------------------------
+def model_configs():
+    from repro_torch.configs import registry
+
+    get = registry.get_smoke_config if MODEL_SMOKE else registry.get_config
+    return get(LM_ARCH), get("bst")
+
+
+def free_device(device) -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def plain_lookup(table, ids):
+    """The BST lookup through embedding_bag's plain version (bags of one)."""
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+
+    return embedding_bag_ref(table, ids.reshape(-1, 1)).reshape(*ids.shape, table.shape[1])
+
+
+def phase_model_kernels(seed: int, device) -> dict:
+    """flash_decode and embedding_bag against their plain versions at the
+    model paths' shapes (phase 7)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+
+    lm, rec = model_configs()
+    out = {}
+    g = torch.Generator(device=device).manual_seed(seed + 20)
+    rng = np.random.default_rng(seed + 20)
+
+    def record(name, shape, err, ms, plain_ms, library_ms, nbytes, nops, **extra):
+        b_ms, b_by = bound(nbytes, nops)
+        rec_ = dict(name=name, shape=list(shape), max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    library_ms=library_ms, bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes,
+                    **extra)
+        emit("kernel", **rec_)
+        return rec_
+
+    # -- flash_decode at decode_32k's shape: q [B, KV, G, dh] f32 against a bf16
+    # cache, seeded live lengths in [1, S]
+    kv, dh = lm.n_kv_heads, lm.d_head
+    grp = lm.n_heads // kv
+    b, s = DECODE_BATCH, DECODE_SEQ
+    q = torch.randn((b, kv, grp, dh), generator=g, device=device)
+    k = torch.randn((b, s, kv, dh), generator=g, device=device, dtype=torch.bfloat16)
+    v = torch.randn((b, s, kv, dh), generator=g, device=device, dtype=torch.bfloat16)
+    kv_len = torch.from_numpy(rng.integers(1, s + 1, b).astype(np.int32)).to(device)
+    got = flash_decode(q, k, v, kv_len)
+    want = flash_decode_ref(q, k, v, kv_len)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+    err = max_abs_err(got, want)
+    # softcap branch, small: Gemma-2's cap of 50 on the same grouping
+    sq, sk, sv = q[:2], k[:2, :1000].contiguous(), v[:2, :1000].contiguous()
+    slen = torch.tensor([1000, 377], dtype=torch.int32, device=device)
+    sg, sw = flash_decode(sq, sk, sv, slen, softcap=50.0), flash_decode_ref(sq, sk, sv, slen,
+                                                                            softcap=50.0)
+    torch.testing.assert_close(sg, sw, rtol=2e-4, atol=2e-5)
+    live = int(kv_len.sum())
+    # the library yardstick: SDPA over [B, H, 1, dh] x [B, KV, S, dh] with GQA
+    # and a length mask, in bf16
+    qh = q.reshape(b, kv * grp, 1, dh).to(torch.bfloat16)
+    kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    mask = (torch.arange(s, device=device)[None, :] < kv_len[:, None])[:, None, None, :]
+    # the decode_32k path's own launches: every row live up to the last step
+    path_len = torch.full((b,), s - DECODE_STEPS + 1, dtype=torch.int32, device=device)
+    path_ms = time_ms(lambda: flash_decode(q, k, v, path_len), device, 50, graph=True)
+    path_mask = (torch.arange(s, device=device)[None, :] < path_len[:, None])[:, None, None, :]
+    path_library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qh, kt, vt, attn_mask=path_mask, enable_gqa=True), device, 20)
+    path_live = int(path_len.sum())
+    out["flash_decode"] = record(
+        "flash_decode", (b, s, kv, grp, dh), err,
+        time_ms(lambda: flash_decode(q, k, v, kv_len), device, 50, graph=True),
+        time_ms(lambda: flash_decode_ref(q, k, v, kv_len), device, 5),
+        time_ms(lambda: F.scaled_dot_product_attention(qh, kt, vt, attn_mask=mask,
+                                                       enable_gqa=True), device, 20),
+        live * kv * dh * 2 * 2 + q.numel() * 4 * 2 + b * 4, live * kv * grp * dh * 4,
+        dtype="bf16", kv_len=kv_len.tolist(), live_positions=live,
+        softcap_max_abs_err=max_abs_err(sg, sw), path_kv_len=path_len.tolist(),
+        path_ms=path_ms, path_library_ms=path_library_ms,
+        path_bound_ms=bound(path_live * kv * dh * 2 * 2 + q.numel() * 8,
+                            path_live * kv * grp * dh * 4)[0])
+    del q, k, v, kt, vt, qh, mask, path_mask, got, want
+    free_device(device)
+
+    # -- embedding_bag at BST's three lookups, plus a weighted, padded case
+    n_items, d = rec.n_items, rec.embed_dim
+    table = (torch.randn((n_items, d), generator=g, device=device) * 0.02).contiguous()
+    bulk = SERVE_BATCHES[-1]
+    cases = {
+        "forward": (rng.integers(0, n_items, (bulk * (rec.seq_len + 1), 1)), None, "sum"),
+        "user_tower": (rng.integers(0, n_items, (1, rec.seq_len)), None, "mean"),
+        "retrieval": (rng.integers(0, n_items, (N_CANDIDATES, 1)), None, "sum"),
+        "weighted_padded": (rng.integers(0, n_items, (SERVE_BATCHES[0], rec.seq_len)),
+                            rng.random((SERVE_BATCHES[0], rec.seq_len)).astype(np.float32),
+                            "mean"),
+    }
+    pad = rng.random(cases["weighted_padded"][0].shape) < 0.3
+    cases["weighted_padded"][0][pad] = -1
+    shapes = {}
+    for name, (ids_np, w_np, mode) in cases.items():
+        ids = torch.from_numpy(ids_np.astype(np.int32)).to(device)
+        w = None if w_np is None else torch.from_numpy(w_np).to(device)
+        got = embedding_bag(table, ids, w, mode)
+        want = embedding_bag_ref(table, ids, w, mode)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        n, kk = ids.shape
+        ids_l = torch.where(ids >= 0, ids, 0).long()
+        if w is None:
+            lib = lambda: F.embedding_bag(ids_l, table, mode=mode)  # noqa: E731
+        else:  # F.embedding_bag takes per-sample weights in sum mode only
+            lib = None
+        distinct = int(torch.unique(ids[ids >= 0]).numel())
+        shapes[name] = dict(
+            shape=[n, kk, d], mode=mode, weighted=w is not None, max_abs_err=max_abs_err(got, want),
+            ms=time_ms(lambda: embedding_bag(table, ids, w, mode), device, 20, graph=True),
+            plain_ms=time_ms(lambda: embedding_bag_ref(table, ids, w, mode), device, 5),
+            library_ms=time_ms(lib, device, 20) if lib else None,
+            bound=bound(distinct * d * 4 + ids.numel() * 4 * (1 if w is None else 2)
+                        + n * d * 4, ids.numel() * d * 2),
+            distinct_rows=distinct)
+        emit("embedding_bag_shape", name=name, **shapes[name])
+        del ids, w, ids_l, got, want
+    r = shapes["retrieval"]
+    out["embedding_bag"] = dict(
+        name="embedding_bag", shape=r["shape"], max_abs_err=max(x["max_abs_err"]
+                                                               for x in shapes.values()),
+        ms=r["ms"], plain_ms=r["plain_ms"], library_ms=r["library_ms"],
+        bound_ms=r["bound"][0], bound_by=r["bound"][1], shapes=shapes)
+    del table
+    free_device(device)
+    return out
+
+
+def check_logits(got, want, rtol: float, atol: float, what: str) -> float:
+    """Raise unless |got - want| <= atol + rtol |want| everywhere; the max abs error."""
+    import torch
+
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} or non-finite logits")
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol, msg=lambda m: f"{what}: {m}")
+    return max_abs_err(got, want)
+
+
+def profiled_step(fn, device) -> tuple:
+    """``fn()`` once under the profiler: (the union of the device's activity
+    intervals in ms, or None where the trace holds no device event, and the
+    step's wall time in ms, device drained)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        _, sec = wall(fn, device)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return None, sec * 1e3
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo = busy + hi - lo, a
+        hi = max(hi, b)
+    return (busy + hi - lo) / 1e3, sec * 1e3
+
+
+def phase_lm_serve(seed: int, device) -> dict:
+    """Phase 8: (a) the serve launcher's main at full width in f32, then one
+    step of both routes; (b) decode_32k in bf16."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.decode import flash_attn_fn, make_decode_step, make_flash_attn_fn
+
+    plain_attn = make_flash_attn_fn(flash_decode_ref)
+    report = {}
+
+    # (a) the launcher, as a user runs it
+    argv = ["--arch", LM_ARCH, "--device", device.type, "--seed", str(seed)]
+    t0 = time.perf_counter()
+    res = serve_main(argv + (["--smoke"] if MODEL_SMOKE else []))
+    main_s = time.perf_counter() - t0
+    cfg, params, cache = res["cfg"], res["params"], res["cache"]
+    toks = res["tokens"]
+    if toks.shape != (4, 33) or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab:
+        raise AssertionError(f"serve main: tokens {tuple(toks.shape)} out of shape or range")
+    step_k = make_decode_step(cfg, torch.float32, attn_fn=flash_attn_fn)
+    step_p = make_decode_step(cfg, torch.float32, attn_fn=plain_attn)
+    last, pos = toks[:, -1:], res["pos"]
+    lp, tp, _ = step_p(params, cache, last, pos)  # each route writes pos itself
+    lk, tk, _ = step_k(params, cache, last, pos)
+    sync(device)
+    report["main"] = dict(config=cfg.name, seconds=main_s, tok_per_s=res["tok_per_s"],
+                          decode_s=res["seconds"], tokens=list(toks.shape),
+                          check_pos=pos, tokens_equal=bool(torch.equal(tk, tp)),
+                          max_abs_err=check_logits(lk, lp, 3e-4, 3e-4, "serve main f32"),
+                          logit_absmax=float(lp.abs().max()))
+    emit("lm_serve_main", **report["main"])
+    del res, params, cache, lk, lp
+    free_device(device)
+
+    # (b) decode_32k in bf16: weights and cache in the compute type
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    lm, _ = model_configs()
+    gen = torch.Generator(device=device).manual_seed(seed + 30)
+    t0 = time.perf_counter()
+    params = T.init_params(lm, gen, dtype=torch.bfloat16, device=device)
+    cache = T.init_cache(lm, DECODE_BATCH, DECODE_SEQ, dtype=torch.bfloat16, device=device)
+    first = DECODE_SEQ - DECODE_STEPS  # positions [0, first) filled from the seed
+    for name in ("k", "v"):
+        for i in range(lm.n_layers):
+            cache[name][i, :, :first].normal_(generator=gen)
+    sync(device)
+    setup_s = time.perf_counter() - t0
+    launch_errs = []
+
+    def checked_attn(q, k_cache, v_cache, pos, window, cap):
+        """The kernel route, each launch held against its plain version on
+        the same inputs (f32 accumulation on both sides)."""
+        got = flash_attn_fn(q, k_cache, v_cache, pos, window, cap)
+        want = plain_attn(q, k_cache, v_cache, pos, window, cap)
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+        launch_errs.append(max_abs_err(got, want))
+        return got
+
+    step_k = make_decode_step(lm, torch.bfloat16, attn_fn=flash_attn_fn)
+    tok = torch.from_numpy(np.random.default_rng(seed + 30).integers(
+        0, lm.vocab, (DECODE_BATCH, 1), dtype=np.int32)).to(device)
+    # one checked step at the first position, both routes from the same cache
+    # (each writes that position itself); the timed steps then redo it
+    lp, tp, _ = make_decode_step(lm, torch.bfloat16, attn_fn=plain_attn)(
+        params, cache, tok, first)
+    lc, tc, _ = make_decode_step(lm, torch.bfloat16, attn_fn=checked_attn)(
+        params, cache, tok, first)
+    limit = 0.1 * float(lp.abs().max())
+    err = check_logits(lc, lp, 0.0, limit, "decode_32k bf16")
+    # two controls of that limit, same step: the plain route with one bf16
+    # ulp added to one element of layer 0's attention output (rounding
+    # noise) must stay inside it, and the kernel route with query head h
+    # grouped under KV head h % KV instead of h // G (a planted fault) must
+    # fall outside it
+    def nudged_attn(q, k_cache, v_cache, pos, window, cap):
+        out = plain_attn(q, k_cache, v_cache, pos, window, cap).to(torch.bfloat16)
+        if not nudged:
+            out.view(torch.int16).view(-1)[0] += 1
+            nudged.append(True)
+        return out
+
+    def regrouped_attn(q, k_cache, v_cache, pos, window, cap):
+        b, _, h, dh = q.shape
+        kv = k_cache.shape[2]
+        qr = q.reshape(b, 1, h // kv, kv, dh).transpose(2, 3).reshape(b, 1, h, dh)
+        out = flash_attn_fn(qr, k_cache, v_cache, pos, window, cap)
+        return out.reshape(b, 1, kv, h // kv, dh).transpose(2, 3).reshape(b, 1, h, dh)
+
+    nudged = []
+    ln, _, _ = make_decode_step(lm, torch.bfloat16, attn_fn=nudged_attn)(
+        params, cache, tok, first)
+    lf, _, _ = make_decode_step(lm, torch.bfloat16, attn_fn=regrouped_attn)(
+        params, cache, tok, first)
+    noise_err, fault_err = max_abs_err(ln, lp), max_abs_err(lf, lp)
+    del ln, lf
+    if not noise_err <= limit < fault_err:
+        raise AssertionError(f"decode_32k: the logits limit {limit} does not separate "
+                             f"one-ulp noise ({noise_err}) from a planted fault ({fault_err})")
+    step_s, per_step = [], []
+    for i in range(DECODE_STEPS):
+        n0 = flash_decode.launches
+        (lk, tk, _), sec = wall(lambda: step_k(params, cache, tok, first + i), device)
+        step_s.append(sec)
+        per_step.append(flash_decode.launches - n0)
+        tok = tk[:, None]
+    if "flash_decode" in PATH_KERNELS["lm_serve"] and any(n != lm.n_layers for n in per_step):
+        raise AssertionError(f"decode_32k: flash_decode launches per step {per_step}, "
+                             f"want {lm.n_layers}")
+    # the last position once more, under the profiler: the device's busy
+    # time, against that step's wall time and the unprofiled steps' median
+    busy_ms, prof_ms = profiled_step(
+        lambda: step_k(params, cache, tok, DECODE_SEQ - 1), device)
+    median_ms = float(np.median(step_s)) * 1e3
+    report["decode_32k"] = dict(
+        config=lm.name, batch=DECODE_BATCH, cache_len=DECODE_SEQ, first_pos=first,
+        steps=DECODE_STEPS, setup_s=setup_s, step_s=step_s,
+        tok_per_s=DECODE_BATCH * DECODE_STEPS / sum(step_s),
+        launches_per_step=per_step, max_abs_err=err, tokens_equal=bool(torch.equal(tc, tp)),
+        one_ulp_control_max_abs_err=noise_err, regrouped_fault_max_abs_err=fault_err,
+        logit_absmax=float(lp.abs().max()), checked_launches=len(launch_errs),
+        launch_max_abs_err=max(launch_errs), logits_limit=limit,
+        profiled_step_ms=prof_ms, device_busy_ms=busy_ms, median_step_ms=median_ms,
+        idle_share_profiled=None if busy_ms is None else 1.0 - busy_ms / prof_ms,
+        idle_share_median=None if busy_ms is None else 1.0 - busy_ms / median_ms,
+        param_bytes=sum(t.numel() * t.element_size() for t in
+                        [params["embed"], params["final_norm"], *params["layers"].values()]),
+        cache_bytes=2 * cache["k"].numel() * cache["k"].element_size(),
+        peak_allocated_bytes=(torch.cuda.max_memory_allocated(device)
+                              if device.type == "cuda" else None))
+    emit("lm_serve_decode_32k", **report["decode_32k"])
+    del params, cache
+    free_device(device)
+    return report
+
+
+def phase_recsys_serve(seed: int, device) -> dict:
+    """Phase 9: BST serving at its published shapes, the table on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    from repro_torch.models import bst as B
+
+    _, cfg = model_configs()
+    gen = torch.Generator(device=device).manual_seed(seed + 40)
+    rng = np.random.default_rng(seed + 40)
+    params = B.init_params(cfg, gen, device=device)
+    report = {"table_bytes": params["item_emb"].numel() * 4}
+
+    def ids(shape):
+        return torch.from_numpy(rng.integers(0, cfg.n_items, shape).astype(np.int32)).to(device)
+
+    for name, batch in zip(("serve_p99", "serve_bulk"), SERVE_BATCHES):
+        hist, target = ids((batch, cfg.seq_len)), ids((batch,))
+        feats = torch.randn((batch, cfg.n_other_feats), generator=gen, device=device)
+        got = B.forward(cfg, params, hist, target, feats)
+        want = B.forward(cfg, params, hist, target, feats, lookup_fn=plain_lookup)
+        err = check_logits(got, want, 1e-5, 1e-5, f"bst forward {name}")
+        ms = time_ms(lambda: B.forward(cfg, params, hist, target, feats), device, 10)
+        report[name] = dict(batch=batch, ms=ms, rows_per_s=batch / ms * 1e3, max_abs_err=err)
+        emit("recsys_serve", cell=name, **report[name])
+        del hist, target, feats, got, want
+
+    hist = ids((1, cfg.seq_len))
+    feats = torch.randn((1, cfg.n_other_feats), generator=gen, device=device)
+    cand = ids((N_CANDIDATES,))
+
+    def retrieve(lookup_fn=None):
+        u = B.user_tower(cfg, params, hist, feats)
+        return u, B.retrieval_scores(cfg, params, u, cand, lookup_fn=lookup_fn)
+
+    user, scores = retrieve()
+    # the tower's plain version is the same mean bag (f32) cast to bf16: at
+    # most one bf16 rounding step apart
+    user_want = embedding_bag_ref(params["item_emb"], hist, mode="mean").to(user.dtype)
+    torch.testing.assert_close(user.float(), user_want.float(), rtol=2.0 ** -8, atol=1e-7)
+    _, scores_want = retrieve(plain_lookup)
+    err = check_logits(scores, scores_want, 1e-5, 1e-5, "bst retrieval_scores")
+    ms = time_ms(retrieve, device, 10)
+    report["retrieval_cand"] = dict(candidates=N_CANDIDATES, ms=ms,
+                                    rows_per_s=N_CANDIDATES / ms * 1e3, max_abs_err=err,
+                                    user_max_abs_err=max_abs_err(user, user_want))
+    emit("recsys_serve", cell="retrieval_cand", **report["retrieval_cand"])
+    del params, hist, cand, scores, scores_want
+    free_device(device)
+    return report
+
+
+def run_models(seed: int, device, launches: dict) -> dict:
+    """Phases 7-9; returns the model kernels' records."""
+    import torch
+
+    free_device(device)
+    if device.type == "cuda":
+        emit("model_start", allocated_bytes=torch.cuda.memory_allocated(device))
+        torch.cuda.reset_peak_memory_stats(device)
+    kernels = phase_model_kernels(seed, device)
+    counted("lm_serve", launches, phase_lm_serve, seed, device)
+    counted("recsys_serve", launches, phase_recsys_serve, seed, device)
+    if device.type == "cuda":
+        emit("memory", phases="7-9",
+             peak_allocated_bytes=torch.cuda.max_memory_allocated(device))
+    return kernels
+
+
+# ---------------------------------------------------------------------------
 def counters():
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.intersect import intersect_count
     from repro_torch.kernels.leaf_search import leaf_search
     from repro_torch.kernels.spmm import leaf_scan_reduce, leaf_spmm
 
     return {"leaf_search": leaf_search, "leaf_scan_reduce": leaf_scan_reduce,
-            "leaf_spmm": leaf_spmm, "intersect_count": intersect_count}
+            "leaf_spmm": leaf_spmm, "intersect_count": intersect_count,
+            "embedding_bag": embedding_bag, "flash_decode": flash_decode}
 
 
 # the kernels each counted phase calls: each must launch in its phase
@@ -694,6 +1127,8 @@ PATH_KERNELS = {
     "isolation": ("leaf_search", "leaf_scan_reduce", "leaf_spmm"),
     "readers": ("leaf_search", "leaf_scan_reduce"),
     "triangles": ("intersect_count",),
+    "lm_serve": ("flash_decode",),
+    "recsys_serve": ("embedding_bag",),
 }
 
 
@@ -713,7 +1148,7 @@ def counted(path: str, launches: dict, fn, *args):
 
 
 def run(seed: int, device) -> dict:
-    """Phases 1-6 on ``device``; returns the per-kernel records."""
+    """Phases 1-9 on ``device``; returns the per-kernel records."""
     import torch
 
     if device.type == "cuda":
@@ -728,13 +1163,15 @@ def run(seed: int, device) -> dict:
     counted("readers", launches, phase_readers, store, seed, device)
     del store, r0, ops0, first
     counted("triangles", launches, phase_triangles, TC_SCALE, seed, device)
+    if device.type == "cuda":
+        emit("memory", phases="1-6",
+             peak_allocated_bytes=torch.cuda.max_memory_allocated(device))
+    kernels.update(run_models(seed, device, launches))
     for name, rec in kernels.items():
         source, replaces = KERNELS[name]
         rec.update(route="cuda", source=source, replaces=replaces,
-                   launches=launches["main"][name],
+                   launches=launches[KERNEL_PATH[name]][name],
                    launches_by_path={p: c[name] for p, c in launches.items()})
-    if device.type == "cuda":
-        emit("memory", peak_allocated_bytes=torch.cuda.max_memory_allocated(device))
     return kernels
 
 
@@ -759,9 +1196,11 @@ def main(argv=None) -> int:
     torch.cuda.set_device(device)
     smi = phase_card(device)
     emit("config", scale=SCALE, tc_scale=TC_SCALE, seed=args.seed,
-         partition_size=64, B=512, edge_factor=16, spmm_d=D_FEATURES)
+         partition_size=64, B=512, edge_factor=16, spmm_d=D_FEATURES, lm=LM_ARCH,
+         decode_batch=DECODE_BATCH, decode_seq=DECODE_SEQ, serve_batches=SERVE_BATCHES,
+         n_candidates=N_CANDIDATES)
     kernels = run(args.seed, device)
-    order = ["leaf_search", "leaf_scan_reduce", "leaf_spmm", "intersect_count"]
+    order = list(KERNELS)
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path"]
     print(json.dumps({"kernels": [{k: kernels[n][k] for k in keys} for n in order]}))

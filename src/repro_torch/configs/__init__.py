@@ -1,4 +1,6 @@
-"""Configurations the port supports."""
+"""Configurations the port supports: the store's own (``rapidstore``) and
+the model families' (``base``, ``registry`` and one module per
+architecture, copied from the reference)."""
 
 from .rapidstore import CONFIG, RapidStoreConfig
 

@@ -208,7 +208,8 @@ class SnapshotView:
     splice instead of concatenate.  ``B`` is the store's configured leaf
     width, so even a subgraph-less view emits block shapes matching the
     device path's padding.  ``device`` is the ``torch.device`` the view's
-    device materializations (``to_*_device``) live on: the store's.
+    device materializations (``to_*_device``) live on: the store's.  It is
+    required, so that no view lands on the host unless a caller asks.
     """
 
     __slots__ = (
@@ -226,7 +227,8 @@ class SnapshotView:
         pred=None,
         lineage=None,
         base=None,
-        device="cpu",
+        *,
+        device,
     ):
         self.ts = ts
         self.p = p

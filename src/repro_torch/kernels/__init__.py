@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels for RapidStore's hot spots on Hopper.
+"""Hand-written CUDA kernels for the port's hot spots on Hopper.
 
 Each kernel package ships two modules:
 
@@ -12,4 +12,7 @@ Inventory (paper hot spot -> kernel):
 - Search(u, v) probes           -> ``leaf_search``
 - Scan-heavy analytics (PR/GNN) -> ``spmm`` (``leaf_scan_reduce``, ``leaf_spmm``)
 - set intersection / TC (§6.2)  -> ``intersect`` (``intersect_count``)
+- BST item-table lookups        -> ``embedding_bag``
+- LM decode attention           -> ``flash_decode`` (with its partial form
+  and the log-sum-exp merge)
 """

@@ -1,0 +1,109 @@
+"""Flash-decode attention for one new token: the CUDA kernel
+(``csrc/flash_decode.cu``) on the card, the plain versions on the CPU.
+
+``flash_decode_partial`` returns the unnormalized (acc, m, l) form that
+sequence-parallel decode merges across shards with ``merge_partials``
+(the log-sum-exp rule) before the final division.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..runtime import check, count_launch, cuda_input, kernel_fn, on_cpu, stream_ptr
+from .ref import flash_decode_partial_ref, flash_decode_ref
+
+WARPS, ROWS_PER_LANE = 4, 4  # csrc/flash_decode.cu kWarps, kU
+CHUNK_ROWS = 512  # cache rows per block (about: whole block steps)
+
+
+def _lanes_per_row(dh: int, dtype: torch.dtype) -> int:
+    """Lanes of 16 bytes that read one K or V row; the kernel takes a power
+    of two up to a warp (dh in {8, ..., 256} for bf16, {4, ..., 128} for f32)."""
+    row = dh * (2 if dtype == torch.bfloat16 else 4)
+    lanes = row // 16
+    if row % 16 or lanes > 32 or lanes & (lanes - 1):
+        raise ValueError(f"flash_decode: no kernel for dh={dh} in {dtype}: a row must "
+                         "be 16 bytes times a power of two, at most 512 bytes")
+    return lanes
+
+
+def _chunk_rows(dh: int, dtype: torch.dtype) -> int:
+    """Cache rows per block: whole block steps (every warp reads
+    ROWS_PER_LANE rows of 32 / lanes at a time), about CHUNK_ROWS."""
+    step = WARPS * ROWS_PER_LANE * (32 // _lanes_per_row(dh, dtype))
+    return step * max(1, CHUNK_ROWS // step)
+
+
+def _launch(q, k, v, kv_len, softcap, normalize: bool):
+    """The kernel on CUDA tensors: acc / l, or (acc, m, l)."""
+    q = cuda_input(q.float(), torch.float32, 4, "flash_decode q")
+    if k.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash_decode: K/V must be f32 or bf16, got {k.dtype}")
+    k = cuda_input(k, k.dtype, 4, "flash_decode k")
+    v = cuda_input(v, k.dtype, 4, "flash_decode v")
+    kv_len = cuda_input(kv_len, torch.int32, 1, "flash_decode kv_len")
+    b, kv, g, dh = q.shape
+    s = k.shape[1]
+    if k.shape != (b, s, kv, dh) or v.shape != k.shape or kv_len.shape != (b,):
+        raise ValueError(
+            f"flash_decode: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} "
+            f"and kv_len {tuple(kv_len.shape)} disagree")
+    if g > 8:
+        raise ValueError(f"flash_decode: no kernel for {g} query heads per KV head (max 8)")
+    chunk = _chunk_rows(dh, k.dtype)
+    n_chunks = -(-s // chunk)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    pacc = torch.empty((b, kv, n_chunks, g, dh), **f32)
+    pm = torch.empty((b, kv, n_chunks, g), **f32)
+    pl = torch.empty((b, kv, n_chunks, g), **f32)
+    out = torch.empty((b, kv, g, dh), **f32)
+    m = l = None
+    if not normalize:
+        m = torch.empty((b, kv, g), **f32)
+        l = torch.empty((b, kv, g), **f32)
+    if b and kv and g:
+        fn = kernel_fn("flash_decode", "flash_decode_launch", "ppppppppppiiiiiiifip")
+        check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
+                 pacc.data_ptr(), pm.data_ptr(), pl.data_ptr(), out.data_ptr(),
+                 m.data_ptr() if m is not None else None,
+                 l.data_ptr() if l is not None else None,
+                 b, s, kv, g, dh, chunk, int(k.dtype == torch.bfloat16),
+                 float(softcap) if softcap is not None else 0.0, int(normalize),
+                 stream_ptr(q)), "flash_decode")
+        count_launch(flash_decode)
+    return out if normalize else (out, m, l)
+
+
+def flash_decode(q, k, v, kv_len, softcap=None) -> torch.Tensor:
+    """GQA decode attention for one token: q [B, KV, G, dh] against
+    k, v [B, S, KV, dh] (f32 or bf16) over the first ``kv_len[b]`` positions
+    -> [B, KV, G, dh] f32.  ``kv_len >= 1`` is a precondition."""
+    kv_len = torch.as_tensor(kv_len, dtype=torch.int32, device=k.device)
+    if on_cpu(k, "flash_decode"):
+        return flash_decode_ref(q, k, v, kv_len, softcap=softcap)
+    return _launch(q, k, v, kv_len, softcap, normalize=True)
+
+
+def flash_decode_partial(q, k, v, kv_len, softcap=None):
+    """(acc [B,KV,G,dh], m [B,KV,G], l [B,KV,G]) — unnormalized; its kernel
+    launches count in ``flash_decode.launches``."""
+    kv_len = torch.as_tensor(kv_len, dtype=torch.int32, device=k.device)
+    if on_cpu(k, "flash_decode_partial"):
+        return flash_decode_partial_ref(q, k, v, kv_len, softcap=softcap)
+    return _launch(q, k, v, kv_len, softcap, normalize=False)
+
+
+flash_decode.launches = 0
+
+
+def merge_partials(accs, ms, ls) -> torch.Tensor:
+    """Log-sum-exp merge of sequence-parallel partials -> acc / l."""
+    m_all = torch.max(torch.stack(list(ms)), dim=0).values
+    scale = [torch.exp(mi - m_all) for mi in ms]
+    l = sum(si * li for si, li in zip(scale, ls))
+    acc = sum(si[..., None] * ai for si, ai in zip(scale, accs))
+    return acc / l[..., None]
+
+
+__all__ = ["flash_decode", "flash_decode_partial", "flash_decode_ref", "merge_partials"]

@@ -122,11 +122,12 @@ def kernel_lib(name: str) -> ctypes.CDLL:
 def kernel_fn(name: str, symbol: str, argtypes: str):
     """The C launch function ``symbol`` of ``csrc/<name>.cu`` with its
     ctypes signature; ``argtypes`` spells it as ``p`` (pointer or stream),
-    ``i`` (int) and ``l`` (long long) — every pointer as a 64-bit
-    ``c_void_p``, never the 32-bit default.  Returns the ``cudaError_t``.
+    ``i`` (int), ``l`` (long long) and ``f`` (float) — every pointer as a
+    64-bit ``c_void_p``, never the 32-bit default.  Returns the ``cudaError_t``.
     Cached: the libraries stay loaded for the life of the process."""
     fn = getattr(kernel_lib(name), symbol)
-    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong}
+    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong,
+             "f": ctypes.c_float}
     fn.argtypes = [kinds[c] for c in argtypes]
     fn.restype = ctypes.c_int
     return fn

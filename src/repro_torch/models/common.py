@@ -1,0 +1,89 @@
+"""Shared model building blocks (functional, dicts of tensors)."""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def dense_init(generator: torch.Generator, shape, scale: Optional[float] = None,
+               dtype=torch.float32, *, device) -> torch.Tensor:
+    """Truncated normal at ±2σ, fan-in scaled (maxtext-style); drawn in f32
+    on ``device`` (the generator's device) and cast to ``dtype``."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    std = (scale if scale is not None else 1.0) / math.sqrt(fan_in)
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return t.mul_(std).to(dtype)
+
+
+def embed_init(generator: torch.Generator, shape, dtype=torch.float32, *,
+               device) -> torch.Tensor:
+    t = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+    return t.mul_(0.02).to(dtype)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
+             zero_centered: bool = False) -> torch.Tensor:
+    """RMSNorm in f32, cast back to ``x``'s dtype.
+
+    ``zero_centered`` follows Gemma's (1 + w) parameterization.
+    """
+    dtype = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    w = (1.0 + weight) if zero_centered else weight
+    return (x * w).to(dtype)
+
+
+def make_rope(positions: torch.Tensor, d_head: int, theta: float = 10000.0):
+    """(sin, cos) tables for rotary embedding; positions [..., S]."""
+    half = d_head // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
+    freqs = 1.0 / (theta ** exps)
+    angles = positions.float()[..., None] * freqs  # [..., S, half]
+    return torch.sin(angles), torch.cos(angles)
+
+
+def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
+    """Half-split rotation: (x1, x2) -> (x1 cos - x2 sin, x2 cos + x1 sin)
+    with x1 the first and x2 the second half of the head dimension.
+
+    x: [..., S, n_heads, d_head]; sin/cos: [..., S, half] broadcast over heads.
+    """
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    sin_ = sin[..., None, :].to(x.dtype)  # add head axis
+    cos_ = cos[..., None, :].to(x.dtype)
+    return torch.cat([x1 * cos_ - x2 * sin_, x2 * cos_ + x1 * sin_], dim=-1)
+
+
+def activation(name: str):
+    return {
+        "silu": F.silu,
+        "gelu": lambda x: F.gelu(x, approximate="tanh"),  # jax.nn.gelu's default
+        "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
+        "relu": F.relu,
+    }[name]
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+def fill_tree(shapes, make):
+    """The tree of ``shapes`` (nested dicts of key -> shape) with each leaf
+    ``make(key, shape)``."""
+    return {k: fill_tree(v, make) if isinstance(v, dict) else make(k, v)
+            for k, v in shapes.items()}
+
+
+def count_params(params) -> int:
+    if isinstance(params, torch.Tensor):
+        return params.numel()
+    return sum(count_params(v) for v in params.values())

@@ -50,6 +50,16 @@ def test_store_without_device_raises_when_cuda_absent():
         RapidStore(32, **KW)
 
 
+def test_view_without_device_raises():
+    """A view names its device: without one it cannot land on the host by
+    default."""
+    from repro_torch.core.snapshot import SnapshotView
+
+    with pytest.raises(TypeError, match="device"):
+        SnapshotView(0, 16, (), 32, B=16)
+    assert SnapshotView(0, 16, (), 32, B=16, device="cpu").device == torch.device("cpu")
+
+
 def test_views_and_outputs_live_on_store_device():
     store = RapidStore.from_edges(96, rand_edges(96, 900, 1), device="cpu", **KW)
     assert store.device == torch.device("cpu")

@@ -1,11 +1,16 @@
-"""The port's four kernel wrappers against the JAX reference kernels.
+"""The port's kernel wrappers against the JAX reference kernels.
 
-The same numpy-seeded inputs (B in {16, 128, 512}, a ragged Q, some
-all-SENTINEL rows) go through ``repro``'s function — its Pallas kernel in
-interpret mode on the CPU, as ``tests/test_kernels.py`` runs it — and the
-port's function on CPU tensors, which takes the plain PyTorch version.
-Leaf search and intersect must match bitwise; scan-reduce within
-rtol=atol=1e-5 and SpMM within 1e-4 (the sums run in another order).
+The same numpy-seeded inputs go through ``repro``'s function — its Pallas
+kernel in interpret mode on the CPU, as ``tests/test_kernels.py`` runs it
+— and the port's function on CPU tensors, which takes the plain PyTorch
+version.  Graph kernels (B in {16, 128, 512}, a ragged Q, some
+all-SENTINEL rows): leaf search and intersect must match bitwise,
+scan-reduce within rtol=atol=1e-5 and SpMM within 1e-4 (the sums run in
+another order).  Model kernels: embedding_bag within rtol=atol=1e-5 on
+``test_kernels.py``'s grid (sum/mean, weighted and not, 30% -1 padding);
+flash_decode and its partial form within rtol=2e-4, atol=2e-5 in f32 and
+2e-2 in bf16, on ``test_kernels.py``'s cases plus Qwen2.5-14B's grouping
+(G=5, dh=128).
 
 ``TestKernelsOnCard`` holds each CUDA kernel against its plain version on
 the card and skips where torch sees no CUDA device.
@@ -16,6 +21,14 @@ import pytest
 
 import torch
 
+from repro_torch.kernels.embedding_bag import embedding_bag
+from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+from repro_torch.kernels.flash_decode import (
+    flash_decode,
+    flash_decode_partial,
+    merge_partials,
+)
+from repro_torch.kernels.flash_decode.ref import flash_decode_partial_ref, flash_decode_ref
 from repro_torch.kernels.intersect import intersect_count, intersect_count_hybrid
 from repro_torch.kernels.intersect.ref import intersect_count_ref
 from repro_torch.kernels.leaf_search import leaf_search
@@ -65,12 +78,58 @@ def intersect_inputs(b, seed=2):
     return sorted_rows(rng, Q, b, universe), sorted_rows(rng, Q, b, universe)
 
 
+EMBEDDING_BAG_CASES = [(100, 16, 12, 5, "sum"), (1000, 32, 33, 20, "mean"),
+                       (64, 8, 4, 3, "sum")]
+# (B, S, KV, G, dh, softcap): tests/test_kernels.py's cases, then Qwen2.5-14B's
+# grouping (40 query heads over 8 KV heads: G=5, dh=128) at a small S
+FLASH_DECODE_CASES = [(2, 256, 2, 4, 64, None), (3, 1000, 4, 2, 128, 50.0),
+                      (1, 64, 1, 8, 32, None), (2, 300, 2, 5, 128, None)]
+
+
+def bag_inputs(v, d, n, k, seed=3):
+    """Table, ids with 30% -1 padding, and normal weights."""
+    rng = np.random.default_rng(seed)
+    table = rng.normal(size=(v, d)).astype(np.float32)
+    ids = rng.integers(0, v, size=(n, k)).astype(np.int32)
+    ids[rng.random(size=(n, k)) < 0.3] = -1
+    return table, ids, rng.normal(size=(n, k)).astype(np.float32)
+
+
+def decode_inputs(b, s, kv, g, dh, seed=4):
+    """q [B, KV, G, dh], k, v [B, S, KV, dh] and kv_len in [1, S]."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, kv, g, dh)).astype(np.float32)
+    k = rng.normal(size=(b, s, kv, dh)).astype(np.float32)
+    v = rng.normal(size=(b, s, kv, dh)).astype(np.float32)
+    return q, k, v, rng.integers(1, s + 1, b).astype(np.int32)
+
+
+def sum_order_bound(table, ids, w, mode, want):
+    """How far two f32 summation orders of the same bags may drift apart:
+    2 K u Σ_k |w_k table[id_k]| (u = 2^-24) for the weighted sum, divided
+    by the mean's divisor, plus |want| times the divisor's own drift
+    2 K u Σ|w| / |Σ w| in mean mode.  Normal weights that nearly cancel make
+    a mean ill-conditioned, so rtol alone cannot hold it."""
+    k, u = ids.shape[1], 2.0 ** -24
+    mask = ids >= 0
+    wl = torch.where(mask, torch.ones_like(mask, dtype=torch.float32) if w is None else w, 0.0)
+    rows = table[torch.where(mask, ids, 0).long()]
+    bound = 2 * k * u * (rows.abs() * wl.abs()[..., None]).sum(1)
+    if mode == "mean":
+        den = wl.sum(1).clamp(min=1e-9)[:, None]
+        bound = bound / den + want.abs() * 2 * k * u * wl.abs().sum(1)[:, None] / den
+    return bound
+
+
 @pytest.fixture(scope="module")
 def ref():
     """The reference kernels, imported here so that the card-only class
     below collects where JAX is not installed."""
     from types import SimpleNamespace
 
+    from repro.kernels.embedding_bag import embedding_bag
+    from repro.kernels.flash_decode import flash_decode
+    from repro.kernels.flash_decode.ops import flash_decode_partial, merge_partials
     from repro.kernels.intersect import intersect_count, intersect_count_hybrid
     from repro.kernels.leaf_search import leaf_search
     from repro.kernels.spmm import leaf_scan_reduce, leaf_spmm
@@ -78,6 +137,8 @@ def ref():
     return SimpleNamespace(
         leaf_search=leaf_search, scan=leaf_scan_reduce, spmm=leaf_spmm,
         intersect=intersect_count, hybrid=intersect_count_hybrid,
+        embedding_bag=embedding_bag, flash_decode=flash_decode,
+        flash_decode_partial=flash_decode_partial, merge_partials=merge_partials,
     )
 
 
@@ -121,6 +182,71 @@ def test_intersect_count_matches_reference(ref, b):
     assert np.array_equal(hybrid.numpy(), np.asarray(ref.hybrid(a, bb)))
 
 
+@pytest.mark.parametrize("weighted", [True, False], ids=["weighted", "unweighted"])
+@pytest.mark.parametrize("case", EMBEDDING_BAG_CASES, ids=str)
+def test_embedding_bag_matches_reference(ref, case, weighted):
+    v, d, n, k, mode = case
+    table, ids, w = bag_inputs(v, d, n, k)
+    w = w if weighted else None
+    want = np.asarray(ref.embedding_bag(table, ids, w, mode=mode))
+    got = embedding_bag(torch.from_numpy(table), torch.from_numpy(ids),
+                        None if w is None else torch.from_numpy(w), mode=mode)
+    assert got.dtype == torch.float32 and got.shape == (n, d)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", FLASH_DECODE_CASES, ids=str)
+def test_flash_decode_matches_reference(ref, case):
+    *shape, cap = case
+    q, k, v, kv_len = decode_inputs(*shape)
+    want = np.asarray(ref.flash_decode(q, k, v, kv_len, block_s=128, softcap=cap))
+    got = flash_decode(*(torch.from_numpy(a) for a in (q, k, v, kv_len)), softcap=cap)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("case", FLASH_DECODE_CASES, ids=str)
+def test_flash_decode_partial_matches_reference(ref, case):
+    *shape, cap = case
+    q, k, v, kv_len = decode_inputs(*shape)
+    want = ref.flash_decode_partial(q, k, v, kv_len, block_s=128, softcap=cap)
+    got = flash_decode_partial(*(torch.from_numpy(a) for a in (q, k, v, kv_len)),
+                               softcap=cap)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-4, atol=2e-5)
+
+
+def test_flash_decode_sequence_parallel_merge_matches_reference(ref):
+    """Two sequence shards merged with the log-sum-exp rule; the second
+    sequence has no live position in the second shard."""
+    q, k, v, _ = decode_inputs(2, 512, 2, 4, 64)
+    kv_len = np.array([500, 128], np.int32)
+    half = 256
+    shards = [(k[:, :half], v[:, :half], np.minimum(kv_len, half)),
+              (k[:, half:], v[:, half:], np.maximum(kv_len - half, 0))]
+    want_parts = [ref.flash_decode_partial(q, ks, vs, n, block_s=128) for ks, vs, n in shards]
+    want = np.asarray(ref.merge_partials(*zip(*want_parts)))
+    parts = [flash_decode_partial(torch.from_numpy(q), torch.from_numpy(ks),
+                                  torch.from_numpy(vs), torch.from_numpy(n))
+             for ks, vs, n in shards]
+    got = merge_partials(*zip(*parts))
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-5)
+    whole = flash_decode(*(torch.from_numpy(a) for a in (q, k, v, kv_len)))
+    np.testing.assert_allclose(got.numpy(), whole.numpy(), rtol=2e-4, atol=2e-5)
+
+
+def test_flash_decode_bf16_matches_reference(ref):
+    import jax.numpy as jnp
+
+    q, k, v, _ = decode_inputs(2, 256, 2, 5, 128)
+    kv_len = np.array([256, 77], np.int32)
+    want = np.asarray(ref.flash_decode(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                                       kv_len, block_s=128))
+    got = flash_decode(*(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)),
+                       torch.from_numpy(kv_len))
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-2, atol=2e-2)
+
+
 def test_cpu_path_launches_nothing():
     rows, targets = search_inputs(16)
     before = (leaf_search.launches, leaf_scan_reduce.launches,
@@ -131,6 +257,32 @@ def test_cpu_path_launches_nothing():
     after = (leaf_search.launches, leaf_scan_reduce.launches,
              leaf_spmm.launches, intersect_count.launches)
     assert before == after
+
+
+def test_flash_decode_kernel_shapes():
+    """Rows of 16 bytes times a power of two; whole block steps of about
+    512 rows per block."""
+    from repro_torch.kernels.flash_decode.ops import _chunk_rows, _lanes_per_row
+
+    assert _lanes_per_row(128, torch.bfloat16) == 16
+    assert _lanes_per_row(128, torch.float32) == 32
+    assert _lanes_per_row(16, torch.bfloat16) == 2
+    for dh, dtype in ((144, torch.bfloat16), (256, torch.float32), (12, torch.bfloat16)):
+        with pytest.raises(ValueError, match="no kernel"):
+            _lanes_per_row(dh, dtype)
+    for dh, dtype in ((128, torch.bfloat16), (128, torch.float32), (16, torch.bfloat16),
+                      (8, torch.bfloat16)):
+        assert _chunk_rows(dh, dtype) == 512
+
+
+def test_cpu_model_kernels_launch_nothing():
+    table, ids, w = (torch.from_numpy(a) for a in bag_inputs(50, 8, 6, 4))
+    q, k, v, kv_len = (torch.from_numpy(a) for a in decode_inputs(1, 64, 1, 8, 32))
+    before = (embedding_bag.launches, flash_decode.launches)
+    embedding_bag(table, ids, w, mode="mean")
+    flash_decode(q, k, v, kv_len)
+    flash_decode_partial(q, k, v, kv_len)
+    assert (embedding_bag.launches, flash_decode.launches) == before
 
 
 def test_launch_counter_is_exact_across_threads():
@@ -159,6 +311,13 @@ def test_other_devices_raise():
     rows = torch.zeros((4, 16), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         leaf_search(rows, torch.zeros(4, dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        embedding_bag(torch.zeros((8, 4), device="meta"), rows[:, :2])
+    k = torch.zeros((1, 8, 1, 4), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        flash_decode(torch.zeros((1, 1, 2, 4), device="meta"), k, k, [8])
+    with pytest.raises(ValueError, match="mode"):
+        embedding_bag(torch.zeros((8, 4)), torch.zeros((2, 2), dtype=torch.int32), mode="max")
 
 
 @pytest.mark.cuda
@@ -195,3 +354,44 @@ class TestKernelsOnCard:
         assert torch.equal(intersect_count(a, bb), intersect_count_ref(a, bb))
         narrow = bb[:, : b // 2].contiguous()  # two widths, as tier pairs give
         assert torch.equal(intersect_count(a, narrow), intersect_count_ref(a, narrow))
+
+    @pytest.mark.parametrize("weighted", [True, False], ids=["weighted", "unweighted"])
+    @pytest.mark.parametrize("case", EMBEDDING_BAG_CASES + [(4096, 32, 1000, 1, "sum")],
+                             ids=str)
+    def test_embedding_bag(self, case, weighted):
+        v, d, n, k, mode = case
+        table, ids, w = (torch.from_numpy(a).cuda() for a in bag_inputs(v, d, n, k))
+        w = w if weighted else None
+        n0 = embedding_bag.launches
+        got = embedding_bag(table, ids, w, mode=mode)
+        torch.cuda.synchronize()
+        assert embedding_bag.launches == n0 + 1
+        want = embedding_bag_ref(table, ids, w, mode)
+        assert ((got - want).abs() <= 1e-5 + 1e-5 * want.abs()
+                + sum_order_bound(table, ids, w, mode, want)).all()
+
+    def test_embedding_bag_refuses_rows_it_reads_no_float4_of(self):
+        ids = torch.zeros((3, 2), dtype=torch.int32, device="cuda")
+        n0 = embedding_bag.launches
+        with pytest.raises(ValueError, match="d=6"):
+            embedding_bag(torch.zeros((40, 6), device="cuda"), ids)
+        with pytest.raises(ValueError, match="aligned"):
+            embedding_bag(torch.zeros(40 * 8 + 1, device="cuda")[1:].view(40, 8), ids)
+        assert embedding_bag.launches == n0
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+    @pytest.mark.parametrize("case", FLASH_DECODE_CASES + [(4, 4100, 8, 5, 128, None)],
+                             ids=str)
+    def test_flash_decode(self, case, dtype):
+        *shape, cap = case
+        q, k, v, kv_len = (torch.from_numpy(a).cuda() for a in decode_inputs(*shape))
+        k, v = k.to(dtype), v.to(dtype)
+        n0 = flash_decode.launches
+        got = flash_decode(q, k, v, kv_len, softcap=cap)
+        torch.cuda.synchronize()
+        assert flash_decode.launches == n0 + 1
+        torch.testing.assert_close(got, flash_decode_ref(q, k, v, kv_len, softcap=cap),
+                                   rtol=2e-4, atol=2e-5)
+        for g, w in zip(flash_decode_partial(q, k, v, kv_len, softcap=cap),
+                        flash_decode_partial_ref(q, k, v, kv_len, softcap=cap)):
+            torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-5)
