@@ -17,17 +17,26 @@ script exits non-zero without the last line):
 1. build     nvcc builds every csrc/*.cu for sm_90a
 2. kernels   each CUDA kernel against its plain version at the main path's
              shapes, with its time, the plain version's, a library call's
-             and the least time the card needs for the same bytes
+             and the least time the card needs for the same bytes;
+             leaf_search searches the candidate tiles in place (index and
+             live length), beside torch.searchsorted on a gathered copy and
+             the gather's own time; leaf_spmm's library call also over all
+             tiles
 3. main      store + pinned view R0, the view-level entry points on R0,
              20 write transactions, spliced view R1, the entry points on
              R1, a warm repeat with zero uploads; checks against point
-             reads and the port's own CPU route
+             reads and the port's own CPU route; edge_search_view on the
+             warm R1 step by step
 4. isolation the pinned R0 answers bitwise as before the writes
 5. readers   two reader threads repeat queries on their own pinned views
              while the main thread commits
 6. triangles triangle_count_view on the card == triangle_count_fast on host
 7. model kernels  flash_decode and embedding_bag against their plain
-             versions at the model paths' shapes, timed as in phase 2
+             versions at the model paths' shapes, timed as in phase 2;
+             flash_decode's tensor-core route at the decode_32k path, at
+             seeded lengths, with softcap 50 and at dh 144 (Gemma-2-27B's
+             grouping), and the CUDA-core route (f32 K/V) at seeded
+             lengths
 8. lm_serve  Qwen2.5-14B at full width: (a) ``repro_torch.launch.serve``'s
              ``main`` with its defaults (f32, batch 4, prompt 32 fed token
              by token, 32 decode tokens, max_seq 128), then one step of the
@@ -61,9 +70,9 @@ fit on one card.
 ``bound_ms`` counts the bytes the function needs on this run's data, not
 the whole tiles: a tile's live ids are a sorted prefix followed by
 SENTINEL padding (checked), so a scan reads the 128-byte lines up to the
-first SENTINEL, a binary search reads one 32-byte sector per probe until
-its interval fits in one sector, and a gather reads each distinct x or H
-row it touches once.
+first SENTINEL, the binary searches over the tiles' live prefixes read
+each distinct 32-byte sector their probes touch once (queries share
+tiles), and a gather reads each distinct x or H row it touches once.
 """
 
 from __future__ import annotations
@@ -212,6 +221,34 @@ def search_sectors(width: int) -> int:
     return 1 + math.ceil(math.log2(max(1, math.ceil(width / (SECTOR // 4)))))
 
 
+def search_sector_ids(rows, targets, index, length, want_pos):
+    """(distinct sector ids, probes): the kernel's binary search replayed
+    over each query's live prefix, every probe's 32-byte sector of ``rows``
+    kept once; raises unless it lands on ``want_pos``."""
+    import torch
+
+    B = rows.shape[1]
+    lo = torch.zeros_like(targets)
+    hi = length[index].clamp(0, B)
+    base = index * B
+    ids, probes = [], 0
+    while True:
+        active = lo < hi
+        if not bool(active.any()):
+            break
+        mid = (lo + hi) >> 1
+        at = base[active] + mid[active]
+        probes += int(at.numel())
+        ids.append(at // (SECTOR // 4))
+        below = torch.zeros_like(active)
+        below[active] = rows.reshape(-1)[at] < targets[active]
+        lo = torch.where(active & below, mid + 1, lo)
+        hi = torch.where(active & ~below, mid, hi)
+    if not torch.equal(lo, want_pos.to(lo.dtype)):
+        raise AssertionError("the replayed search disagrees with leaf_search_ref")
+    return torch.unique(torch.cat(ids)) if ids else base[:0], probes
+
+
 def max_abs_err(got, want) -> float:
     import torch
 
@@ -336,29 +373,48 @@ def phase_kernels(view, ops, device) -> dict:
                          bound_by=b_by, bound_bytes=nbytes, **extra)
         emit("kernel", **out[name])
 
-    # -- leaf_search at edge_search_view's shape: candidate tiles of the queries
-    bsrc, order = view_assembler.block_src_index(view)
-    s_sorted = bsrc[order]
+    # -- leaf_search at edge_search_view's shape: the queries' candidate
+    # tiles, named by index into the resident tiles and searched over their
+    # live prefix in place (no gathered copy)
+    from repro_torch.kernels.leaf_search import ops as search_ops
+
+    offsets, order = view_assembler.block_src_offsets(view)
     us, vs = ops["queries"][:, 0], ops["queries"][:, 1]
-    lo, hi = np.searchsorted(s_sorted, us, "left"), np.searchsorted(s_sorted, us, "right")
-    qidx = np.repeat(np.arange(len(us)), hi - lo)
-    flat = np.concatenate([order[a:b] for a, b in zip(lo, hi) if b > a])
-    srows = rows[torch.from_numpy(flat).to(device)]
+    qidx, flat = search_ops.flatten_candidates(
+        order, *search_ops.candidate_ranges(offsets, us))
+    index = torch.from_numpy(flat.astype(np.int32)).to(device)
+    length = view.to_leaf_blocks_device().length
     tgt = torch.from_numpy(vs[qidx].astype(np.int32)).to(device)
-    f, p = leaf_search(srows, tgt)
-    fr, pr = leaf_search_ref(srows, tgt)
+    if not torch.equal(length, lengths.to(torch.int32)):
+        raise AssertionError("the tiles' length column disagrees with their live prefix")
+    f, p = leaf_search(rows, tgt, index, length)
+    fr, pr = leaf_search_ref(rows, tgt, index, length)
     if not (torch.equal(f, fr) and torch.equal(p, pr)):
         raise AssertionError("leaf_search disagrees with its plain version")
-    Q = srows.shape[0]
+    err = max(max_abs_err(p, pr), max_abs_err(f, fr))
+    Q = tgt.shape[0]
+    li = index.long()
+    srows = rows[li]  # the gathered copy the first port searched
     tgt2 = tgt[:, None].contiguous()
-    probes = search_sectors(B)
-    record("leaf_search", (Q, B), max(max_abs_err(p, pr), max_abs_err(f, fr)),
-           time_ms(lambda: leaf_search(srows, tgt), device, 50, graph=True),
-           time_ms(lambda: leaf_search_ref(srows, tgt), device, 10, graph=True),
-           time_ms(lambda: torch.searchsorted(srows, tgt2), device, 50, graph=True),
-           Q * (probes * SECTOR + 4 + 4 + 1), Q * math.ceil(math.log2(B + 1)),
-           sectors_per_query=probes)
-    del srows, tgt, tgt2, f, p, fr, pr
+    gather_ms = time_ms(lambda: rows[li], device, 20, graph=True)
+    searchsorted_ms = time_ms(lambda: torch.searchsorted(srows, tgt2), device, 50, graph=True)
+    # the bytes the search needs: each distinct sector its probes touch, once
+    # (pairs share tiles), plus target, index, pos and found per pair and the
+    # length of each distinct tile
+    sector_ids, probes = search_sector_ids(rows, tgt, li, length, pr)
+    sectors = int(sector_ids.numel())
+    n_tiles = int(torch.unique(li).numel())
+    seven_bound, _ = bound(Q * (search_sectors(B) * SECTOR + 4 * 4 + 1), 0)
+    record("leaf_search", (Q, B), err,
+           time_ms(lambda: leaf_search(rows, tgt, index, length), device, 50, graph=True),
+           # the plain version checks the index range on the host, so no graph
+           time_ms(lambda: leaf_search_ref(rows, tgt, index, length), device, 10),
+           searchsorted_ms, sectors * SECTOR + Q * (4 * 3 + 1) + n_tiles * 4, probes,
+           gather_ms=gather_ms, library_with_gather_ms=gather_ms + searchsorted_ms,
+           distinct_sectors=sectors, probes=probes, distinct_tiles=n_tiles,
+           bound_7_sectors_ms=seven_bound,
+           mean_live=float(lengths[li].double().mean()), n_tiles=N)
+    del srows, tgt, tgt2, f, p, fr, pr, index, li, sector_ids
 
     # -- leaf_scan_reduce over the whole view (leaf_scan_reduce_view's shape)
     x = ops["x"]
@@ -396,13 +452,18 @@ def phase_kernels(view, ops, device) -> dict:
     pidx, ppsw = idx[:n_p], psw[:n_p]
     main_ms = time_ms(lambda: leaf_spmm(rows, H), device, 3)
     ym = leaf_spmm(rows, H)
-    err = 0.0
+    err, main_library_ms, n_chunks = 0.0, 0.0, 0
     for c0 in range(0, N, SPMM_PLAIN_ROWS):
         c1 = min(N, c0 + SPMM_PLAIN_ROWS)
         ymr = leaf_spmm_ref(rows[c0:c1], H)
         torch.testing.assert_close(ym[c0:c1], ymr, rtol=1e-4, atol=1e-4)
         err = max(err, max_abs_err(ym[c0:c1], ymr))
         del ymr
+        # the library call over all tiles: the same chunks, summed
+        cidx, cpsw = idx[c0:c1], psw[c0:c1]
+        main_library_ms += time_ms(lambda: F.embedding_bag(cidx, H, mode="sum",
+                                                           per_sample_weights=cpsw), device, 2)
+        n_chunks += 1
     del ym
     main_bound, _ = bound(rows_bytes + touched * d * 4 + N * d * 4, live * d)
     record("leaf_spmm", (n_p, B, d), err,
@@ -413,7 +474,8 @@ def phase_kernels(view, ops, device) -> dict:
            prefix_bytes(lengths[:n_p], B) + ptouched * d * 4 + n_p * d * 4, plive * d,
            checked_tiles=N, gathered_bytes=plive * d * 4, distinct_h_rows=ptouched,
            main_shape=[N, B, d], main_ms=main_ms, main_bound_ms=main_bound,
-           main_distinct_h_rows=touched, main_gathered_bytes=live * d * 4)
+           main_distinct_h_rows=touched, main_gathered_bytes=live * d * 4,
+           main_library_ms=main_library_ms, main_library_chunks=n_chunks)
     del idx, psw, pidx, ppsw, prow
 
     # -- intersect_count at sum_intersect_tiles_view's batch shape
@@ -476,6 +538,34 @@ def run_entry_points(view, ops, device) -> tuple:
     secs["sssp_iterations"] = A.sssp_coo.iterations
     secs["wcc_iterations"] = A.wcc_coo.iterations
     return res, secs
+
+
+def edge_search_breakdown(view, ops, device, reps: int = 5) -> dict:
+    """edge_search_view on a warm view, step by step (host clock, device
+    drained after each step; the median of ``reps``), and the whole call;
+    the steps' answer must equal the call's bitwise."""
+    import numpy as np
+
+    from repro_torch.core import view_assembler
+    from repro_torch.kernels.leaf_search import edge_search_view
+    from repro_torch.kernels.leaf_search import ops as search_ops
+
+    us, vs = ops["queries"][:, 0], ops["queries"][:, 1]
+    steps = {k: [] for k in ("block_src_offsets", "candidate_ranges", "flatten",
+                             "search_tiles", "copy_back", "steps_total", "edge_search_view")}
+    for _ in range(reps):
+        (offsets, order), t0 = wall(lambda: view_assembler.block_src_offsets(view), device)
+        (lo, hi), t1 = wall(lambda: search_ops.candidate_ranges(offsets, us), device)
+        (qidx, flat), t2 = wall(lambda: search_ops.flatten_candidates(order, lo, hi), device)
+        hits, t3 = wall(lambda: search_ops.search_tiles(view, vs, qidx, flat, len(us)), device)
+        got, t4 = wall(lambda: hits.cpu().numpy(), device)
+        want, t5 = wall(lambda: edge_search_view(view, us, vs), device)
+        if not np.array_equal(got, want):
+            raise AssertionError("edge_search_view's steps disagree with the call")
+        for k_, t in zip(steps, (t0, t1, t2, t3, t4, t0 + t1 + t2 + t3 + t4, t5)):
+            steps[k_].append(t * 1e3)
+    return {k_: float(np.median(v)) for k_, v in steps.items()} | {
+        "pairs": int(len(flat)), "queries": int(len(us)), "reps": reps}
 
 
 def check_results(view, ops, res) -> dict:
@@ -618,6 +708,8 @@ def phase_main(store, r0, ops0, info, seed, device) -> dict:
     warm_uploads = device_cache.stats.uploads - up0
     if warm_uploads:
         raise AssertionError(f"warm repeat uploaded {warm_uploads} arrays")
+    breakdown = edge_search_breakdown(r1.view, ops1, device)
+    emit("edge_search_breakdown", view="R1 warm", ms=breakdown)
     store.end_read(r1)
     emit("main", **info, write_txns=N_WRITES, write_s=write_s,
          splice_blocks_s=splice_blocks, splice_coo_s=splice_coo,
@@ -769,8 +861,43 @@ def phase_model_kernels(seed: int, device) -> dict:
         emit("kernel", **rec_)
         return rec_
 
-    # -- flash_decode at decode_32k's shape: q [B, KV, G, dh] f32 against a bf16
-    # cache, seeded live lengths in [1, S]
+    # -- flash_decode: q [B, KV, G, dh] f32 against the cache.  Each case is
+    # checked against the plain version and timed beside SDPA (GQA, a length
+    # mask) on the same inputs; the kernels line takes the decode_32k path.
+    from repro_torch.kernels.flash_decode import ops as decode_ops
+
+    def sdpa_fn(q, k, v, kv_len):
+        """SDPA over [B, H, 1, dh] x [B, KV, S, dh] in K/V's type."""
+        b_, s_, kv_, dh_ = k.shape
+        qh = q.reshape(b_, -1, 1, dh_).to(k.dtype)
+        kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+        mask = (torch.arange(s_, device=device)[None, :] < kv_len[:, None])[:, None, None, :]
+        return lambda: F.scaled_dot_product_attention(qh, kt, vt, attn_mask=mask,
+                                                      enable_gqa=True)
+
+    def decode_case(q, k, v, kv_len, softcap=None, plain_reps=5):
+        got = flash_decode(q, k, v, kv_len, softcap=softcap)
+        want = flash_decode_ref(q, k, v, kv_len, softcap=softcap)
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+        b_, s_, kv_, dh_ = k.shape
+        live = int(kv_len.clamp(0, s_).sum())
+        esz = k.element_size()
+        res = dict(shape=[b_, s_, kv_, q.shape[2], dh_], dtype=str(k.dtype).split(".")[-1],
+                   route=decode_ops.route(k.dtype, dh_), softcap=softcap,
+                   kv_len=kv_len.tolist(), live_positions=live,
+                   max_abs_err=max_abs_err(got, want),
+                   ms=time_ms(lambda: flash_decode(q, k, v, kv_len, softcap=softcap),
+                              device, 50, graph=True),
+                   plain_ms=time_ms(lambda: flash_decode_ref(q, k, v, kv_len, softcap=softcap),
+                                    device, plain_reps),
+                   library_ms=None if softcap else time_ms(sdpa_fn(q, k, v, kv_len), device,
+                                                           20))
+        b_ms, b_by = bound(live * kv_ * dh_ * esz * 2 + q.numel() * 4 * 2 + b_ * 4,
+                           live * kv_ * q.shape[2] * dh_ * 4)
+        res.update(bound_ms=b_ms, bound_by=b_by)
+        emit("flash_decode_case", **res)
+        return res
+
     kv, dh = lm.n_kv_heads, lm.d_head
     grp = lm.n_heads // kv
     b, s = DECODE_BATCH, DECODE_SEQ
@@ -778,42 +905,38 @@ def phase_model_kernels(seed: int, device) -> dict:
     k = torch.randn((b, s, kv, dh), generator=g, device=device, dtype=torch.bfloat16)
     v = torch.randn((b, s, kv, dh), generator=g, device=device, dtype=torch.bfloat16)
     kv_len = torch.from_numpy(rng.integers(1, s + 1, b).astype(np.int32)).to(device)
-    got = flash_decode(q, k, v, kv_len)
-    want = flash_decode_ref(q, k, v, kv_len)
-    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
-    err = max_abs_err(got, want)
-    # softcap branch, small: Gemma-2's cap of 50 on the same grouping
-    sq, sk, sv = q[:2], k[:2, :1000].contiguous(), v[:2, :1000].contiguous()
-    slen = torch.tensor([1000, 377], dtype=torch.int32, device=device)
-    sg, sw = flash_decode(sq, sk, sv, slen, softcap=50.0), flash_decode_ref(sq, sk, sv, slen,
-                                                                            softcap=50.0)
-    torch.testing.assert_close(sg, sw, rtol=2e-4, atol=2e-5)
-    live = int(kv_len.sum())
-    # the library yardstick: SDPA over [B, H, 1, dh] x [B, KV, S, dh] with GQA
-    # and a length mask, in bf16
-    qh = q.reshape(b, kv * grp, 1, dh).to(torch.bfloat16)
-    kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
-    mask = (torch.arange(s, device=device)[None, :] < kv_len[:, None])[:, None, None, :]
+    cases = {}
     # the decode_32k path's own launches: every row live up to the last step
     path_len = torch.full((b,), s - DECODE_STEPS + 1, dtype=torch.int32, device=device)
-    path_ms = time_ms(lambda: flash_decode(q, k, v, path_len), device, 50, graph=True)
-    path_mask = (torch.arange(s, device=device)[None, :] < path_len[:, None])[:, None, None, :]
-    path_library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qh, kt, vt, attn_mask=path_mask, enable_gqa=True), device, 20)
-    path_live = int(path_len.sum())
-    out["flash_decode"] = record(
-        "flash_decode", (b, s, kv, grp, dh), err,
-        time_ms(lambda: flash_decode(q, k, v, kv_len), device, 50, graph=True),
-        time_ms(lambda: flash_decode_ref(q, k, v, kv_len), device, 5),
-        time_ms(lambda: F.scaled_dot_product_attention(qh, kt, vt, attn_mask=mask,
-                                                       enable_gqa=True), device, 20),
-        live * kv * dh * 2 * 2 + q.numel() * 4 * 2 + b * 4, live * kv * grp * dh * 4,
-        dtype="bf16", kv_len=kv_len.tolist(), live_positions=live,
-        softcap_max_abs_err=max_abs_err(sg, sw), path_kv_len=path_len.tolist(),
-        path_ms=path_ms, path_library_ms=path_library_ms,
-        path_bound_ms=bound(path_live * kv * dh * 2 * 2 + q.numel() * 8,
-                            path_live * kv * grp * dh * 4)[0])
-    del q, k, v, kt, vt, qh, mask, path_mask, got, want
+    cases["path"] = decode_case(q, k, v, path_len)
+    cases["seeded"] = decode_case(q, k, v, kv_len)
+    # softcap 50 (Gemma-2's) on the same grouping, small
+    slen = torch.tensor([1000, 377], dtype=torch.int32, device=device)
+    cases["softcap"] = decode_case(q[:2], k[:2, :1000].contiguous(), v[:2, :1000].contiguous(),
+                                   slen, softcap=50.0)
+    # the CUDA-core route: the same seeded inputs with f32 K/V
+    kf, vf = k.float(), v.float()
+    del k, v
+    free_device(device)
+    cases["f32_seeded"] = decode_case(q, kf, vf, kv_len)
+    del kf, vf
+    free_device(device)
+    # dh 144, small: Gemma-2-27B's grouping (32 heads over 16 KV heads) and cap
+    q2 = torch.randn((2, 16, 2, 144), generator=g, device=device)
+    k2 = torch.randn((2, 4096, 16, 144), generator=g, device=device, dtype=torch.bfloat16)
+    v2 = torch.randn((2, 4096, 16, 144), generator=g, device=device, dtype=torch.bfloat16)
+    len2 = torch.tensor([4096, 2900], dtype=torch.int32, device=device)
+    cases["dh144"] = decode_case(q2, k2, v2, len2)
+    cases["dh144_softcap"] = decode_case(q2, k2, v2, len2, softcap=50.0)
+    del q2, k2, v2
+    p_ = cases["path"]
+    out["flash_decode"] = dict(
+        name="flash_decode", max_abs_err=max(c["max_abs_err"] for c in cases.values()),
+        ms=p_["ms"], plain_ms=p_["plain_ms"], library_ms=p_["library_ms"],
+        bound_ms=p_["bound_ms"], bound_by=p_["bound_by"], shape=p_["shape"],
+        chunk_rows=decode_ops.MMA_CHUNK_ROWS, cases=cases)
+    emit("kernel", **{k_: v_ for k_, v_ in out["flash_decode"].items() if k_ != "cases"})
+    del q
     free_device(device)
 
     # -- embedding_bag at BST's three lookups, plus a weighted, padded case
@@ -903,7 +1026,7 @@ def phase_lm_serve(seed: int, device) -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.flash_decode import flash_decode, route
     from repro_torch.kernels.flash_decode.ref import flash_decode_ref
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.models import transformer as T
@@ -1020,7 +1143,8 @@ def phase_lm_serve(seed: int, device) -> dict:
         config=lm.name, batch=DECODE_BATCH, cache_len=DECODE_SEQ, first_pos=first,
         steps=DECODE_STEPS, setup_s=setup_s, step_s=step_s,
         tok_per_s=DECODE_BATCH * DECODE_STEPS / sum(step_s),
-        launches_per_step=per_step, max_abs_err=err, tokens_equal=bool(torch.equal(tc, tp)),
+        launches_per_step=per_step, route=route(torch.bfloat16, lm.d_head),
+        max_abs_err=err, tokens_equal=bool(torch.equal(tc, tp)),
         one_ulp_control_max_abs_err=noise_err, regrouped_fault_max_abs_err=fault_err,
         logit_absmax=float(lp.abs().max()), checked_launches=len(launch_errs),
         launch_max_abs_err=max(launch_errs), logits_limit=limit,

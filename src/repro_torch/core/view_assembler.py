@@ -186,7 +186,7 @@ class ViewAssembly:
         "coo_offsets", "block_offsets", "data_offsets",
         "host_coo", "host_stream", "host_blocks", "host_csr",
         "dev_coo", "dev_csr", "dev_blocks",
-        "src_order",
+        "src_order", "src_offsets",
         "__weakref__",
     )
 
@@ -208,6 +208,7 @@ class ViewAssembly:
         self.dev_csr = None  # DeviceCSRView
         self.dev_blocks = None  # DeviceLeafBlockView
         self.src_order: Optional[np.ndarray] = None
+        self.src_offsets: Optional[np.ndarray] = None
 
     def has_content(self) -> bool:
         return any(
@@ -593,6 +594,8 @@ def host_stream(view):
             a.block_offsets = pred.block_offsets
             a.data_offsets = pred.data_offsets
             a.src_order = pred.src_order  # argsort carries over unchanged
+            if pred.n_vertices == a.n_vertices:
+                a.src_offsets = pred.src_offsets
             a.host_stream = pred.host_stream
             _count(reuses=1)
             return a.host_stream
@@ -713,6 +716,22 @@ def block_src_index(view) -> Tuple[np.ndarray, np.ndarray]:
         order.setflags(write=False)
         a.src_order = (src, order)
     return a.src_order
+
+
+def block_src_offsets(view) -> Tuple[np.ndarray, np.ndarray]:
+    """(offsets int64 [n_vertices + 1], order): the leaf tiles of vertex u
+    are ``order[offsets[u]:offsets[u + 1]]``, ``order`` being
+    :func:`block_src_index`'s stable argsort.  Memoized, so a batched edge
+    search finds each query's candidate tiles with two gathers."""
+    a = _bundle(view)
+    src, order = block_src_index(view)
+    if a.src_offsets is None:
+        counts = np.bincount(src, minlength=view.n_vertices)
+        offsets = np.zeros(len(counts) + 1, np.int64)
+        np.cumsum(counts, out=offsets[1:])
+        offsets.setflags(write=False)
+        a.src_offsets = offsets
+    return a.src_offsets, order
 
 
 # ---------------------------------------------------------------------------
@@ -930,6 +949,7 @@ __all__ = [
     "AssemblyStats",
     "ViewAssembly",
     "block_src_index",
+    "block_src_offsets",
     "device_blocks",
     "device_coo",
     "device_csr",

@@ -1,5 +1,10 @@
-"""Flash-decode attention for one new token: the CUDA kernel
+"""Flash-decode attention for one new token: the CUDA kernels
 (``csrc/flash_decode.cu``) on the card, the plain versions on the CPU.
+
+Two kernels serve the card, chosen by :func:`route` from the K/V type and
+dh alone: ``"mma"`` (tensor cores, bf16 with dh a multiple of 16) and
+``"simt"`` (CUDA cores: f32, and bf16 rows of other widths).  Both count in
+``flash_decode.launches``.
 
 ``flash_decode_partial`` returns the unnormalized (acc, m, l) form that
 sequence-parallel decode merges across shards with ``merge_partials``
@@ -13,13 +18,30 @@ import torch
 from ..runtime import check, count_launch, cuda_input, kernel_fn, on_cpu, stream_ptr
 from .ref import flash_decode_partial_ref, flash_decode_ref
 
-WARPS, ROWS_PER_LANE = 4, 4  # csrc/flash_decode.cu kWarps, kU
-CHUNK_ROWS = 512  # cache rows per block (about: whole block steps)
+WARPS, ROWS_PER_LANE = 4, 4  # csrc/flash_decode.cu kWarps, kU (route "simt")
+CHUNK_ROWS = 512  # cache rows per block on route "simt" (about: whole block steps)
+MMA_TILE = 16  # csrc/flash_decode.cu tc::kTile: positions per warp step (route "mma")
+MMA_CHUNK_ROWS = 2048  # cache rows per block on route "mma" (whole block steps)
+
+
+def route(dtype: torch.dtype, dh: int) -> str:
+    """The kernel that serves K/V of ``dtype`` and head width ``dh``, a pure
+    function of the two: ``"mma"`` (tensor cores) for bf16 with dh a
+    multiple of 16 in [16, 256]; ``"simt"`` (CUDA cores) for f32 and the
+    other bf16 widths whose rows are 16 bytes times a power of two; raises
+    for the rest."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash_decode: K/V must be f32 or bf16, got {dtype}")
+    if dtype == torch.bfloat16 and dh % 16 == 0 and 16 <= dh <= 256:
+        return "mma"
+    _lanes_per_row(dh, dtype)
+    return "simt"
 
 
 def _lanes_per_row(dh: int, dtype: torch.dtype) -> int:
-    """Lanes of 16 bytes that read one K or V row; the kernel takes a power
-    of two up to a warp (dh in {8, ..., 256} for bf16, {4, ..., 128} for f32)."""
+    """Lanes of 16 bytes that read one K or V row on the "simt" route; it
+    takes a power of two up to a warp (dh in {8, ..., 256} for bf16,
+    {4, ..., 128} for f32)."""
     row = dh * (2 if dtype == torch.bfloat16 else 4)
     lanes = row // 16
     if row % 16 or lanes > 32 or lanes & (lanes - 1):
@@ -29,17 +51,21 @@ def _lanes_per_row(dh: int, dtype: torch.dtype) -> int:
 
 
 def _chunk_rows(dh: int, dtype: torch.dtype) -> int:
-    """Cache rows per block: whole block steps (every warp reads
-    ROWS_PER_LANE rows of 32 / lanes at a time), about CHUNK_ROWS."""
-    step = WARPS * ROWS_PER_LANE * (32 // _lanes_per_row(dh, dtype))
-    return step * max(1, CHUNK_ROWS // step)
+    """Cache rows per block: whole block steps of the route's kernel, about
+    MMA_CHUNK_ROWS on "mma" (every warp takes tiles of MMA_TILE) and
+    CHUNK_ROWS on "simt" (every warp reads ROWS_PER_LANE rows of 32 / lanes
+    at a time)."""
+    if route(dtype, dh) == "mma":
+        step, rows = WARPS * MMA_TILE, MMA_CHUNK_ROWS
+    else:
+        step, rows = WARPS * ROWS_PER_LANE * (32 // _lanes_per_row(dh, dtype)), CHUNK_ROWS
+    return step * max(1, rows // step)
 
 
 def _launch(q, k, v, kv_len, softcap, normalize: bool):
     """The kernel on CUDA tensors: acc / l, or (acc, m, l)."""
     q = cuda_input(q.float(), torch.float32, 4, "flash_decode q")
-    if k.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"flash_decode: K/V must be f32 or bf16, got {k.dtype}")
+    kernel = route(k.dtype, q.shape[-1])
     k = cuda_input(k, k.dtype, 4, "flash_decode k")
     v = cuda_input(v, k.dtype, 4, "flash_decode v")
     kv_len = cuda_input(kv_len, torch.int32, 1, "flash_decode kv_len")
@@ -63,14 +89,19 @@ def _launch(q, k, v, kv_len, softcap, normalize: bool):
         m = torch.empty((b, kv, g), **f32)
         l = torch.empty((b, kv, g), **f32)
     if b and kv and g:
-        fn = kernel_fn("flash_decode", "flash_decode_launch", "ppppppppppiiiiiiifip")
-        check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-                 pacc.data_ptr(), pm.data_ptr(), pl.data_ptr(), out.data_ptr(),
-                 m.data_ptr() if m is not None else None,
-                 l.data_ptr() if l is not None else None,
-                 b, s, kv, g, dh, chunk, int(k.dtype == torch.bfloat16),
-                 float(softcap) if softcap is not None else 0.0, int(normalize),
-                 stream_ptr(q)), "flash_decode")
+        args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
+                pacc.data_ptr(), pm.data_ptr(), pl.data_ptr(), out.data_ptr(),
+                m.data_ptr() if m is not None else None,
+                l.data_ptr() if l is not None else None,
+                b, s, kv, g, dh, chunk]
+        cap = float(softcap) if softcap is not None else 0.0
+        if kernel == "mma":
+            fn = kernel_fn("flash_decode", "flash_decode_mma_launch", "ppppppppppiiiiiifip")
+            err = fn(*args, cap, int(normalize), stream_ptr(q))
+        else:
+            fn = kernel_fn("flash_decode", "flash_decode_launch", "ppppppppppiiiiiiifip")
+            err = fn(*args, int(k.dtype == torch.bfloat16), cap, int(normalize), stream_ptr(q))
+        check(err, "flash_decode")
         count_launch(flash_decode)
     return out if normalize else (out, m, l)
 
@@ -106,4 +137,4 @@ def merge_partials(accs, ms, ls) -> torch.Tensor:
     return acc / l[..., None]
 
 
-__all__ = ["flash_decode", "flash_decode_partial", "flash_decode_ref", "merge_partials"]
+__all__ = ["flash_decode", "flash_decode_partial", "flash_decode_ref", "merge_partials", "route"]

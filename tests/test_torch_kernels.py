@@ -16,6 +16,11 @@ flash_decode and its partial form within rtol=2e-4, atol=2e-5 in f32 and
 the card and skips where torch sees no CUDA device.
 """
 
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -36,6 +41,7 @@ from repro_torch.kernels.leaf_search.ref import leaf_search_ref
 from repro_torch.kernels.spmm import leaf_scan_reduce, leaf_spmm
 from repro_torch.kernels.spmm.ref import leaf_scan_reduce_ref, leaf_spmm_ref
 
+SRC = Path(__file__).resolve().parents[1] / "src"
 SENT = np.iinfo(np.int32).max
 WIDTHS = [16, 128, 512]
 Q = 37  # ragged: no block size of either package divides it
@@ -61,6 +67,33 @@ def search_inputs(b, seed=0):
     return rows, targets
 
 
+def tile_search_inputs(b, n=11, seed=5):
+    """Resident tiles with ragged live lengths (tiles 0 and 5 empty), their
+    lengths, Q queries naming tiles with repeats, and targets below, on,
+    between and above each tile's live ids."""
+    rng = np.random.default_rng(seed)
+    tiles = sorted_rows(rng, n, b, 5000)
+    length = (tiles != SENT).sum(axis=1).astype(np.int32)
+    index = rng.integers(0, n, Q).astype(np.int32)
+    index[:2] = 0  # the length-0 tile
+    targets = np.empty(Q, np.int32)
+    for i, r in enumerate(index):
+        live = tiles[r, : length[r]]
+        if not len(live):
+            targets[i] = rng.integers(0, 5000)
+            continue
+        kind = i % 4
+        if kind == 0:
+            targets[i] = live[0] - 1  # below
+        elif kind == 1:
+            targets[i] = live[rng.integers(0, len(live))]  # on an id
+        elif kind == 2:
+            targets[i] = rng.integers(live[0], live[-1] + 1)  # inside, hit or miss
+        else:
+            targets[i] = live[-1] + 1 + rng.integers(0, 3)  # above
+    return tiles, targets, index, length
+
+
 def gather_inputs(b, nv=300, d=12, seed=1):
     rng = np.random.default_rng(seed)
     rows = np.full((Q, b), SENT, np.int32)
@@ -81,9 +114,11 @@ def intersect_inputs(b, seed=2):
 EMBEDDING_BAG_CASES = [(100, 16, 12, 5, "sum"), (1000, 32, 33, 20, "mean"),
                        (64, 8, 4, 3, "sum")]
 # (B, S, KV, G, dh, softcap): tests/test_kernels.py's cases, then Qwen2.5-14B's
-# grouping (40 query heads over 8 KV heads: G=5, dh=128) at a small S
+# grouping (40 query heads over 8 KV heads: G=5, dh=128) at a small S,
+# Gemma-2-27B's (32 over 16: G=2, dh=144, softcap 50) and a full group of 8
 FLASH_DECODE_CASES = [(2, 256, 2, 4, 64, None), (3, 1000, 4, 2, 128, 50.0),
-                      (1, 64, 1, 8, 32, None), (2, 300, 2, 5, 128, None)]
+                      (1, 64, 1, 8, 32, None), (2, 300, 2, 5, 128, None),
+                      (2, 300, 2, 2, 144, 50.0), (1, 200, 1, 8, 128, None)]
 
 
 def bag_inputs(v, d, n, k, seed=3):
@@ -95,10 +130,13 @@ def bag_inputs(v, d, n, k, seed=3):
     return table, ids, rng.normal(size=(n, k)).astype(np.float32)
 
 
-def decode_inputs(b, s, kv, g, dh, seed=4):
-    """q [B, KV, G, dh], k, v [B, S, KV, dh] and kv_len in [1, S]."""
+def decode_inputs(b, s, kv, g, dh, seed=4, q_norm=None):
+    """q [B, KV, G, dh], k, v [B, S, KV, dh] and kv_len in [1, S]; each
+    query head scaled to norm ``q_norm`` where given."""
     rng = np.random.default_rng(seed)
     q = rng.normal(size=(b, kv, g, dh)).astype(np.float32)
+    if q_norm is not None:
+        q = (q * (q_norm / np.linalg.norm(q, axis=-1, keepdims=True))).astype(np.float32)
     k = rng.normal(size=(b, s, kv, dh)).astype(np.float32)
     v = rng.normal(size=(b, s, kv, dh)).astype(np.float32)
     return q, k, v, rng.integers(1, s + 1, b).astype(np.int32)
@@ -150,6 +188,29 @@ def test_leaf_search_matches_reference(ref, b):
     assert f_got.dtype == torch.bool and p_got.dtype == torch.int32
     assert np.array_equal(f_got.numpy(), np.asarray(f_want))
     assert np.array_equal(p_got.numpy(), np.asarray(p_want))
+
+
+@pytest.mark.parametrize("b", WIDTHS)
+def test_leaf_search_index_length_matches_reference(ref, b):
+    """Resident tiles named by index, searched over their live prefix,
+    against the reference kernel on the gathered full rows."""
+    tiles, targets, index, length = tile_search_inputs(b)
+    f_want, p_want = ref.leaf_search(tiles[index], targets)
+    args = [torch.from_numpy(a) for a in (tiles, targets, index, length)]
+    for f_got, p_got in (leaf_search_ref(*args), leaf_search(*args)):
+        assert f_got.dtype == torch.bool and p_got.dtype == torch.int32
+        assert np.array_equal(f_got.numpy(), np.asarray(f_want))
+        assert np.array_equal(p_got.numpy(), np.asarray(p_want))
+    assert np.asarray(f_want).any() and not np.asarray(f_want).all()
+
+
+@pytest.mark.parametrize("bad", [11, -1])
+def test_leaf_search_index_out_of_range_raises(bad):
+    """On the CPU an index outside [0, n) raises, as the kernel traps."""
+    tiles, targets, index, length = (torch.from_numpy(a) for a in tile_search_inputs(16))
+    index[3] = bad
+    with pytest.raises(IndexError, match="outside"):
+        leaf_search(tiles, targets, index, length)
 
 
 @pytest.mark.parametrize("b", WIDTHS)
@@ -260,19 +321,44 @@ def test_cpu_path_launches_nothing():
 
 
 def test_flash_decode_kernel_shapes():
-    """Rows of 16 bytes times a power of two; whole block steps of about
-    512 rows per block."""
-    from repro_torch.kernels.flash_decode.ops import _chunk_rows, _lanes_per_row
+    """bf16 rows with dh a multiple of 16 (up to 256) take the tensor-core
+    route, whole block steps of 2048 rows per block; the CUDA-core route
+    takes rows of 16 bytes times a power of two, about 512 rows per block."""
+    from repro_torch.kernels.flash_decode.ops import _chunk_rows, _lanes_per_row, route
 
     assert _lanes_per_row(128, torch.bfloat16) == 16
     assert _lanes_per_row(128, torch.float32) == 32
     assert _lanes_per_row(16, torch.bfloat16) == 2
-    for dh, dtype in ((144, torch.bfloat16), (256, torch.float32), (12, torch.bfloat16)):
+    assert route(torch.bfloat16, 144) == "mma"
+    for dh, dtype in ((144, torch.float32), (256, torch.float32), (12, torch.bfloat16)):
         with pytest.raises(ValueError, match="no kernel"):
-            _lanes_per_row(dh, dtype)
-    for dh, dtype in ((128, torch.bfloat16), (128, torch.float32), (16, torch.bfloat16),
-                      (8, torch.bfloat16)):
+            route(dtype, dh)
+    for dh, dtype in ((128, torch.float32), (8, torch.bfloat16), (4, torch.float32)):
         assert _chunk_rows(dh, dtype) == 512
+    for dh in (16, 64, 128, 144, 256):
+        assert _chunk_rows(dh, torch.bfloat16) == 2048
+
+
+def test_flash_decode_route_is_a_function_of_dtype_and_dh():
+    """The route: "mma" for bf16 K/V with 16 <= dh <= 256 a multiple of 16
+    (every LM config's dh at full width: 64, 80, 128, 144), "simt" for f32
+    and the smoke configs' dh = 8; other types raise."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels.flash_decode import route
+
+    assert {route(torch.bfloat16, dh) for dh in range(16, 257, 16)} == {"mma"}
+    assert route(torch.bfloat16, 8) == "simt"
+    assert {route(torch.float32, dh) for dh in (4, 8, 16, 32, 64, 128)} == {"simt"}
+    for dh in (272, 512):
+        with pytest.raises(ValueError, match="no kernel"):
+            route(torch.bfloat16, dh)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        route(torch.float16, 128)
+    lms = [a for a in registry.arch_ids() if registry.FAMILY[a] == "lm"]
+    full = {registry.get_config(a).d_head for a in lms}
+    assert full == {64, 80, 128, 144}
+    assert {route(torch.bfloat16, dh) for dh in full} == {"mma"}
+    assert {registry.get_smoke_config(a).d_head for a in lms} == {8, 16}
 
 
 def test_cpu_model_kernels_launch_nothing():
@@ -336,6 +422,44 @@ class TestKernelsOnCard:
         assert torch.equal(f, fr) and torch.equal(p, pr)
 
     @pytest.mark.parametrize("b", WIDTHS)
+    def test_leaf_search_index_length(self, b):
+        """The gather-fused, live-prefix kernel bitwise against the plain
+        version."""
+        tiles, targets, index, length = (torch.from_numpy(a).cuda()
+                                         for a in tile_search_inputs(b))
+        n0 = leaf_search.launches
+        f, p = leaf_search(tiles, targets, index, length)
+        torch.cuda.synchronize()
+        assert leaf_search.launches == n0 + 1
+        fr, pr = leaf_search_ref(tiles, targets, index, length)
+        assert torch.equal(f, fr) and torch.equal(p, pr)
+        f, p = leaf_search(tiles, targets[:11], None, length)  # tile i for query i
+        fr, pr = leaf_search_ref(tiles, targets[:11], None, length)
+        assert torch.equal(f, fr) and torch.equal(p, pr)
+
+    @pytest.mark.parametrize("bad", [4, -1])
+    def test_leaf_search_index_out_of_range_fails(self, bad):
+        """An index outside [0, n) traps instead of reading past the tiles;
+        the next synchronisation raises (in a child process: a trap leaves
+        the CUDA context unusable)."""
+        code = (
+            "import torch\n"
+            "from repro_torch.kernels.leaf_search import leaf_search\n"
+            "rows = torch.zeros((4, 16), dtype=torch.int32, device='cuda')\n"
+            "t = torch.zeros(3, dtype=torch.int32, device='cuda')\n"
+            f"ix = torch.tensor([0, {bad}, 1], dtype=torch.int32, device='cuda')\n"
+            "leaf_search(rows, t, ix)\n"
+            "try:\n"
+            "    torch.cuda.synchronize()\n"
+            "except RuntimeError:\n"
+            "    print('trapped', flush=True)\n"
+        )
+        env = dict(os.environ, PYTHONPATH=str(SRC))
+        out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                             text=True, timeout=300)
+        assert out.stdout.strip() == "trapped", out.stderr[-2000:]
+
+    @pytest.mark.parametrize("b", WIDTHS)
     def test_leaf_scan_reduce(self, b):
         rows, x, _ = (torch.from_numpy(a).cuda() for a in gather_inputs(b))
         got = leaf_scan_reduce(rows, x)
@@ -380,13 +504,24 @@ class TestKernelsOnCard:
         assert embedding_bag.launches == n0
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-    @pytest.mark.parametrize("case", FLASH_DECODE_CASES + [(4, 4100, 8, 5, 128, None)],
-                             ids=str)
+    @pytest.mark.parametrize("case", FLASH_DECODE_CASES + [(4, 4100, 8, 5, 128, None),
+                                                           (3, 333, 2, 1, 64, None)], ids=str)
     def test_flash_decode(self, case, dtype):
+        """Both routes (bf16 with dh % 16 == 0 takes the tensor cores);
+        a dh that neither route takes raises before any launch."""
+        from repro_torch.kernels.flash_decode import route
+
         *shape, cap = case
         q, k, v, kv_len = (torch.from_numpy(a).cuda() for a in decode_inputs(*shape))
         k, v = k.to(dtype), v.to(dtype)
         n0 = flash_decode.launches
+        try:
+            route(dtype, shape[-1])
+        except ValueError:
+            with pytest.raises(ValueError, match="no kernel"):
+                flash_decode(q, k, v, kv_len, softcap=cap)
+            assert flash_decode.launches == n0
+            return
         got = flash_decode(q, k, v, kv_len, softcap=cap)
         torch.cuda.synchronize()
         assert flash_decode.launches == n0 + 1
@@ -395,3 +530,15 @@ class TestKernelsOnCard:
         for g, w in zip(flash_decode_partial(q, k, v, kv_len, softcap=cap),
                         flash_decode_partial_ref(q, k, v, kv_len, softcap=cap)):
             torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-5)
+
+    @pytest.mark.parametrize("cap", [None, 50.0], ids=str)
+    @pytest.mark.parametrize("dh", [64, 128, 144])
+    def test_flash_decode_mma_large_q(self, dh, cap):
+        """Query heads of norm 30 (peaked scores, large products): the
+        tensor-core route's bf16 hi/lo split of q and p keeps f32 accuracy."""
+        q, k, v, kv_len = (torch.from_numpy(a).cuda()
+                           for a in decode_inputs(2, 700, 2, 5, dh, seed=6, q_norm=30.0))
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        got = flash_decode(q, k, v, kv_len, softcap=cap)
+        torch.testing.assert_close(got, flash_decode_ref(q, k, v, kv_len, softcap=cap),
+                                   rtol=2e-4, atol=2e-5)

@@ -166,3 +166,22 @@ def test_entry_point_matches_reference(runs, entry, phase):
         assert np.array_equal(want, got)
     else:
         np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_edge_search_view_on_odd_queries(config):
+    """Queries from vertices without tiles and from ids outside the view
+    answer False, as in the reference; every pair through both packages."""
+    tiers = CONFIGS[config]
+    edges = rand_edges(N, 300, 2)
+    r_store = rc.RapidStore.from_edges(N, edges, leaf_tiers=tiers, **STORE_KW)
+    t_store = tc.RapidStore.from_edges(N, edges, leaf_tiers=tiers, device="cpu",
+                                       **STORE_KW)
+    rng = np.random.default_rng(9)
+    us = np.concatenate([edges[:40, 0], [-1, N, N + 3], rng.integers(0, N, 40)])
+    vs = np.concatenate([edges[:40, 1], [0, 1, 2], rng.integers(0, N, 40)])
+    with r_store.read_view() as rv, t_store.read_view() as tv:
+        want = np.asarray(r_edge_search(rv, us, vs))
+        got = t_edge_search(tv, us, vs)
+    assert got.dtype == bool and np.array_equal(got, want)
+    assert got[:40].all() and not got[40:43].any()
