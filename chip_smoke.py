@@ -20,8 +20,12 @@ script exits non-zero without the last line):
              and the least time the card needs for the same bytes;
              leaf_search searches the candidate tiles in place (index and
              live length), beside torch.searchsorted on a gathered copy and
-             the gather's own time; leaf_spmm's library call also over all
-             tiles
+             the gather's own time; leaf_spmm reads each tile's live length,
+             on the 16,384-tile prefix and over all tiles (beside the same
+             kernel over the full width, and the library call over all
+             tiles, with ``gathered_bound_ms``: every live id's H row from
+             HBM); intersect_count names the pairs' tiles in place, beside
+             the kernel on gathered copies and the gather's own time
 3. main      store + pinned view R0, the view-level entry points on R0,
              20 write transactions, spliced view R1, the entry points on
              R1, a warm repeat with zero uploads; checks against point
@@ -30,7 +34,10 @@ script exits non-zero without the last line):
 4. isolation the pinned R0 answers bitwise as before the writes
 5. readers   two reader threads repeat queries on their own pinned views
              while the main thread commits
-6. triangles triangle_count_view on the card == triangle_count_fast on host
+6. triangles triangle_count_view on the card, cold then warm, ==
+             triangle_count_fast on host; then, uncounted, the warm call's
+             split: host enumeration of the tile pairs, index uploads, the
+             kernel's summed device time, the rest
 7. model kernels  flash_decode and embedding_bag against their plain
              versions at the model paths' shapes, timed as in phase 2;
              flash_decode's tensor-core route at the decode_32k path, at
@@ -72,7 +79,8 @@ the whole tiles: a tile's live ids are a sorted prefix followed by
 SENTINEL padding (checked), so a scan reads the 128-byte lines up to the
 first SENTINEL, the binary searches over the tiles' live prefixes read
 each distinct 32-byte sector their probes touch once (queries share
-tiles), and a gather reads each distinct x or H row it touches once.
+tiles), a gather reads each distinct x or H row it touches once, and
+the intersections read each distinct tile's live prefix once.
 """
 
 from __future__ import annotations
@@ -144,6 +152,23 @@ def wall(fn, device):
     out = fn()
     sync(device)
     return out, time.perf_counter() - t0
+
+
+def device_seconds(fn, device):
+    """(result, seconds) of ``fn()`` on the device: CUDA events around it
+    on the card (the host clock on the CPU), the device drained first."""
+    import torch
+
+    sync(device)
+    if device.type != "cuda":
+        return wall(fn, device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end) / 1e3
 
 
 def time_ms(fn, device, reps: int, graph: bool = False) -> float:
@@ -439,23 +464,28 @@ def phase_kernels(view, ops, device) -> dict:
            rows_bytes + touched * 4 + N * 4, live, live_entries=live,
            tile_bytes=N * B * 4, live_prefix_bytes=rows_bytes, distinct_x=touched)
 
-    # -- leaf_spmm: timed against the plain version and the library call on
-    # a prefix of tiles (the plain version materializes [N, B, d]); the
-    # all-tile launch of the main path is timed (main_ms) and held against
-    # the plain version chunk by chunk, every tile included.
+    # -- leaf_spmm over each tile's live prefix (the tiles' length column):
+    # timed against the plain version and the library call on a prefix of
+    # tiles (the plain version materializes [N, B, d]); the all-tile launch
+    # of the main path is timed (main_ms), beside the same kernel over the
+    # full width B (main_no_length_ms), and held against the plain version
+    # chunk by chunk, every tile included.
+    from repro_torch.kernels.spmm import route as spmm_route
+
     H = ops["H"]
     d = H.shape[1]
     n_p = min(N, SPMM_PLAIN_ROWS)
-    prow = rows[:n_p]
+    prow, plen = rows[:n_p], length[:n_p]
     plive = int(lengths[:n_p].sum())
     ptouched = int(torch.unique(prow[prow != SENTINEL]).numel())
     pidx, ppsw = idx[:n_p], psw[:n_p]
-    main_ms = time_ms(lambda: leaf_spmm(rows, H), device, 3)
-    ym = leaf_spmm(rows, H)
+    main_ms = time_ms(lambda: leaf_spmm(rows, H, length), device, 5)
+    main_no_length_ms = time_ms(lambda: leaf_spmm(rows, H), device, 3)
+    ym = leaf_spmm(rows, H, length)
     err, main_library_ms, n_chunks = 0.0, 0.0, 0
     for c0 in range(0, N, SPMM_PLAIN_ROWS):
         c1 = min(N, c0 + SPMM_PLAIN_ROWS)
-        ymr = leaf_spmm_ref(rows[c0:c1], H)
+        ymr = leaf_spmm_ref(rows[c0:c1], H, length[c0:c1])
         torch.testing.assert_close(ym[c0:c1], ymr, rtol=1e-4, atol=1e-4)
         err = max(err, max_abs_err(ym[c0:c1], ymr))
         del ymr
@@ -465,35 +495,58 @@ def phase_kernels(view, ops, device) -> dict:
                                                            per_sample_weights=cpsw), device, 2)
         n_chunks += 1
     del ym
-    main_bound, _ = bound(rows_bytes + touched * d * 4 + N * d * 4, live * d)
+    main_bound, _ = bound(rows_bytes + touched * d * 4 + N * 4 + N * d * 4, live * d)
     record("leaf_spmm", (n_p, B, d), err,
-           time_ms(lambda: leaf_spmm(prow, H), device, 20),
-           time_ms(lambda: leaf_spmm_ref(prow, H), device, 2),
+           time_ms(lambda: leaf_spmm(prow, H, plen), device, 20),
+           time_ms(lambda: leaf_spmm_ref(prow, H, plen), device, 2),
            time_ms(lambda: F.embedding_bag(pidx, H, mode="sum", per_sample_weights=ppsw),
                    device, 5),
-           prefix_bytes(lengths[:n_p], B) + ptouched * d * 4 + n_p * d * 4, plive * d,
+           prefix_bytes(lengths[:n_p], B) + ptouched * d * 4 + n_p * 4 + n_p * d * 4,
+           plive * d, kernel_route=spmm_route(d, H.data_ptr()),
            checked_tiles=N, gathered_bytes=plive * d * 4, distinct_h_rows=ptouched,
-           main_shape=[N, B, d], main_ms=main_ms, main_bound_ms=main_bound,
+           main_shape=[N, B, d], main_ms=main_ms, main_no_length_ms=main_no_length_ms,
+           main_bound_ms=main_bound, gathered_bound_ms=live * d * 4 / HBM_BYTES_PER_S * 1e3,
            main_distinct_h_rows=touched, main_gathered_bytes=live * d * 4,
            main_library_ms=main_library_ms, main_library_chunks=n_chunks)
     del idx, psw, pidx, ppsw, prow
 
-    # -- intersect_count at sum_intersect_tiles_view's batch shape
-    ia = torch.from_numpy(ops["ia"]).to(device)
-    ib = torch.from_numpy(ops["ib"]).to(device)
-    a, b = rows[ia], rows[ib]
-    c = intersect_count(a, b)
-    cr = intersect_count_ref(a, b)
+    # -- intersect_count at sum_intersect_tiles_view's batch shape: the pairs'
+    # tiles named by index into the resident tiles and read over their live
+    # prefix in place (no gathered copy); beside it the same kernel on
+    # gathered full-width copies (the first port's form) and the gather's
+    # own time
+    ia = torch.from_numpy(ops["ia"].astype(np.int32)).to(device)
+    ib = torch.from_numpy(ops["ib"].astype(np.int32)).to(device)
+    Qi = ia.shape[0]
+    c = intersect_count(rows, rows, ia, ib, length, length)
+    cr = intersect_count_ref(rows, rows, ia, ib, length, length)
     if not torch.equal(c, cr):
         raise AssertionError("intersect_count disagrees with its plain version")
-    la, lb = lengths[ia], lengths[ib]
-    Qi = a.shape[0]
+    lia, lib = ia.long(), ib.long()
+    a, b = rows[lia], rows[lib]  # the gathered copies the first port read
+    if not torch.equal(intersect_count(a, b), c):
+        raise AssertionError("intersect_count on gathered copies disagrees")
+    gather_ms = time_ms(lambda: (rows[lia], rows[lib]), device, 20, graph=True)
+    gathered_ms = time_ms(lambda: intersect_count(a, b), device, 50, graph=True)
+    del a, b
+    la, lb = lengths[lia], lengths[lib]
+    tiles = torch.unique(torch.cat([lia, lib]))
+    # each distinct tile's live-prefix lines and length once, the two
+    # indices and the count per pair; per pair: each pair's two prefixes
+    per_pair, _ = bound(prefix_bytes(la, B) + prefix_bytes(lb, B) + Qi * 4 * 5, 0)
     # a merge of the two sorted live prefixes: one compare per element
     record("intersect_count", (Qi, B), max_abs_err(c, cr),
-           time_ms(lambda: intersect_count(a, b), device, 50, graph=True),
-           time_ms(lambda: intersect_count_ref(a, b), device, 3, graph=True),
+           time_ms(lambda: intersect_count(rows, rows, ia, ib, length, length), device, 50,
+                   graph=True),
+           # the plain version checks the index range on the host, so no graph
+           time_ms(lambda: intersect_count_ref(rows, rows, ia, ib, length, length), device, 3),
            None,
-           prefix_bytes(la, B) + prefix_bytes(lb, B) + Qi * 4, int((la + lb).sum()),
+           prefix_bytes(lengths[tiles], B) + int(tiles.numel()) * 4 + Qi * 4 * 3,
+           int((la + lb).sum()),
+           bound_per_pair_ms=per_pair, distinct_tiles=int(tiles.numel()),
+           gathered_ms=gathered_ms, gather_ms=gather_ms,
+           gathered_with_gather_ms=gathered_ms + gather_ms,
+           mean_live_a=float(la.double().mean()), mean_live_b=float(lb.double().mean()),
            total_count=int(c.sum()))
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -793,20 +846,72 @@ def phase_readers(store, seed, device, repeats: int = 4, commits: int = 10) -> N
     emit("readers", readers=stats, commits=commits, commit_s=commit_s)
 
 
-def phase_triangles(scale: int, seed: int, device) -> None:
+def phase_triangles(scale: int, seed: int, device):
+    """Phase 6's counted part: triangle_count_view on a cold view, then on
+    the warm view; returns the store and what was measured."""
     from repro_torch.core.analytics import triangle_count_fast, triangle_count_view
+    from repro_torch.kernels.intersect import intersect_count
 
     store, info = build_store(scale, seed, device, undirected=True)
     with store.read_view() as view:
+        n0 = intersect_count.launches
         tc, dev_s = wall(lambda: triangle_count_view(view), device)
+        launches = intersect_count.launches - n0
+        tc_warm, warm_s = wall(lambda: triangle_count_view(view), device)
         t0 = time.perf_counter()
         want = triangle_count_fast(view.to_csr())
         host_s = time.perf_counter() - t0
         n_leaves = view.to_leaf_blocks_device().n_blocks
-    if tc != want:
-        raise AssertionError(f"triangle_count_view {tc} != triangle_count_fast {want}")
-    emit("triangles", scale=scale, **info, n_leaves=n_leaves, triangles=tc,
-         device_s=dev_s, host_fast_s=host_s)
+    if tc != want or tc_warm != want:
+        raise AssertionError(f"triangle_count_view {tc}, {tc_warm} != "
+                             f"triangle_count_fast {want}")
+    return store, dict(scale=scale, **info, n_leaves=n_leaves, triangles=tc,
+                       device_s=dev_s, device_warm_s=warm_s, host_fast_s=host_s,
+                       launches_per_call=launches)
+
+
+def triangle_split(store, info: dict, device) -> None:
+    """Phase 6's split, after the counted calls: triangle_count_view's steps
+    on the warm view, each timed on its own (host clock, device drained):
+    the host enumeration of the tile pairs, the uploads of their indices in
+    the call's batches, and the kernel's summed device time (CUDA events
+    around the loop of launches on the uploaded indices, no host work
+    between them), each step through the same functions
+    ``sum_intersect_tiles_view`` runs (``ops._pair_index``,
+    ``ops._count_pairs``, batches of ``ops.SUM_BATCH``).  ``rest`` is what
+    the warm call took beyond the three, ``cold_extra`` what the first call
+    took beyond the warm one (the view's tile upload and host CSR).  Prints
+    the ``triangles`` line."""
+    import torch
+
+    from repro_torch.core.analytics import triangle_tile_pairs
+    from repro_torch.kernels.intersect import ops as intersect_ops
+
+    batch = intersect_ops.SUM_BATCH
+    with store.read_view() as view:
+        (ia, ib), enum_s = wall(lambda: triangle_tile_pairs(view), device)
+        dev = view.to_leaf_blocks_device()
+        if getattr(dev, "groups", None) is not None:
+            raise AssertionError("the triangle store is tiered: the split assumes one tier")
+        idx, upload_s = wall(lambda: [intersect_ops._pair_index(ia[lo:lo + batch],
+                                                                ib[lo:lo + batch], device)
+                                      for lo in range(0, len(ia), batch)], device)
+        intersect_ops._count_pairs(dev, idx[0])  # warm
+        counts, kernel_s = device_seconds(
+            lambda: [intersect_ops._count_pairs(dev, i) for i in idx], device)
+        total = int(sum(c.sum(dtype=torch.int64) for c in counts))
+        if total != 3 * info["triangles"]:
+            raise AssertionError(f"the split's pair count, {total}, "
+                                 f"!= 3 x {info['triangles']}")
+    pairs = len(ia)
+    warm = info["device_warm_s"]
+    emit("triangles", **info, pairs=pairs, pairs_per_launch=batch,
+         launches_split=len(idx),
+         split_s={"host_enumeration": enum_s, "index_uploads": upload_s,
+                  "kernel_device": kernel_s,
+                  "rest": warm - enum_s - upload_s - kernel_s,
+                  "cold_extra": info["device_s"] - warm},
+         kernel_ms_per_launch=kernel_s * 1e3 / len(idx))
 
 
 # ---------------------------------------------------------------------------
@@ -1286,7 +1391,9 @@ def run(seed: int, device) -> dict:
     store.end_read(r0)
     counted("readers", launches, phase_readers, store, seed, device)
     del store, r0, ops0, first
-    counted("triangles", launches, phase_triangles, TC_SCALE, seed, device)
+    tc_store, tc_info = counted("triangles", launches, phase_triangles, TC_SCALE, seed, device)
+    triangle_split(tc_store, tc_info, device)
+    del tc_store
     if device.type == "cuda":
         emit("memory", phases="1-6",
              peak_allocated_bytes=torch.cuda.max_memory_allocated(device))

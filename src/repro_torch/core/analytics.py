@@ -152,28 +152,35 @@ def wcc_view(view) -> torch.Tensor:
 
 def triangle_count_view(view) -> int:
     """Triangle count over a snapshot view (store an undirected simple graph
-    for exact counts), through the CUDA ``intersect_tiles_view`` entry point
-    on the view's device-resident leaf tiles (paper §6.5's hybrid
-    merge/probe rule applied as operand orientation)."""
-    return _triangle_count_device(view)
+    for exact counts), through the CUDA ``sum_intersect_tiles_view`` entry
+    point on the view's device-resident leaf tiles: one intersect per
+    (leaf-tile, leaf-tile) pair of :func:`triangle_tile_pairs`.
+
+    Each undirected edge is enumerated once as (u, v), u < v, and the
+    *full* neighbor tile sets of u and v are intersected on device: every
+    common neighbor w closes the triangle {u, v, w}, and each triangle is
+    discovered exactly once per edge — three times total — so the
+    pair-count sum is 3T.  Tiles are the delta-plane assembled leaf blocks,
+    so a repeat count after a small write re-uses every clean subgraph's
+    device rows.
+    """
+    from ..kernels.intersect import sum_intersect_tiles_view
+
+    ia, ib = triangle_tile_pairs(view)
+    if len(ia) == 0:
+        return 0
+    return sum_intersect_tiles_view(view, ia, ib) // 3
 
 
-def _triangle_count_device(view, batch: int = 8192) -> int:
-    """Device TC: one intersect per (leaf-tile, leaf-tile) pair.
-
-    Enumerate each undirected edge once as (u, v), u < v, and intersect the
-    *full* neighbor tile sets of u and v on device: every common neighbor w
-    closes the triangle {u, v, w}, and each triangle is discovered exactly
-    once per edge — three times total — so the pair-count sum is 3T.  Tiles
-    are the delta-plane assembled leaf blocks, so a repeat count after a
-    small write re-uses every clean subgraph's device rows.
+def triangle_tile_pairs(view):
+    """(ia, ib): int64 leaf-tile indices of every (tile of u, tile of v)
+    pair over the undirected edges u < v of ``view``, host side.
 
     The paper's hybrid rule (merge when the degree ratio < 10, probe
     otherwise) picks the operand *orientation*: probing keeps the smaller
     tile as the probing operand `a`.  Assumes a simple graph (no
     self-loops), like the host oracle.
     """
-    from ..kernels.intersect import sum_intersect_tiles_view
     from . import view_assembler
 
     src, order = view_assembler.block_src_index(view)
@@ -189,8 +196,9 @@ def _triangle_count_device(view, batch: int = 8192) -> int:
     ev = csr.indices.astype(np.int64)
     fwd = ev > eu  # orient each undirected edge low -> high, once
     eu, ev = eu[fwd], ev[fwd]
+    none = np.zeros(0, np.int64)
     if len(eu) == 0:
-        return 0
+        return none, none
 
     # per-edge tile spans via the src-sorted block index
     lo_u = np.searchsorted(s_sorted, eu, "left")
@@ -201,7 +209,7 @@ def _triangle_count_device(view, batch: int = 8192) -> int:
     pairs_per_edge = ku * kv
     total_pairs = int(pairs_per_edge.sum())
     if total_pairs == 0:
-        return 0
+        return none, none
     # all (tile of u) x (tile of v) pairs, vectorized
     e_idx = np.repeat(np.arange(len(eu)), pairs_per_edge)
     rank = np.arange(total_pairs, dtype=np.int64) - np.repeat(
@@ -214,9 +222,7 @@ def _triangle_count_device(view, batch: int = 8192) -> int:
     la, lb = lens[ia], lens[ib]
     big, small = np.maximum(la, lb), np.maximum(np.minimum(la, lb), 1)
     swap = (big >= HYBRID_RATIO * small) & (la > lb)
-    ia2 = np.where(swap, ib, ia)
-    ib2 = np.where(swap, ia, ib)
-    return sum_intersect_tiles_view(view, ia2, ib2, batch=batch) // 3
+    return np.where(swap, ib, ia), np.where(swap, ia, ib)
 
 
 # ---------------------------------------------------------------------------

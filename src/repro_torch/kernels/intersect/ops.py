@@ -11,25 +11,59 @@ from ..runtime import check, count_launch, cuda_input, kernel_fn, on_cpu, stream
 from .ref import SENTINEL, intersect_count_ref
 
 
-def intersect_count(a, b) -> torch.Tensor:
-    """|a_i ∩ b_i| for SENTINEL-padded [Q, Ba] / [Q, Bb] int32 batches whose
-    ``b`` rows are sorted ascending (as leaf tiles are).  The widths may
-    differ; the result is int32 [Q] on ``a``'s device."""
+SUM_BATCH = 1 << 20  # pairs per launch of sum_intersect_tiles_view
+MAX_WIDTHS = 227 * 1024 // 4  # Ba + Bb: one pair's two rows in a block's shared memory
+
+
+def intersect_count(a, b, index_a=None, index_b=None, length_a=None, length_b=None
+                    ) -> torch.Tensor:
+    """|a_i ∩ b_i| for pairs of SENTINEL-padded int32 tiles whose rows are
+    sorted ascending over their live prefix (as leaf tiles are).
+
+    a: [n_a, Ba], b: [n_b, Bb], the resident tiles themselves (the widths
+    may differ); index_a, index_b: [Q] int32, the tiles of each pair (None:
+    tile i, and then n == Q); length_a [n_a], length_b [n_b] int32: each
+    tile's live ids (None: the full width).  Returns int32 [Q] on ``a``'s
+    device.  A CPU tensor takes the plain version (an index outside [0, n)
+    raises IndexError); a CUDA tensor launches the kernel, a warp per pair
+    reading only the two live prefixes in place (no gathered copy), which
+    traps on an index outside [0, n), so the next synchronisation raises.
+    The kernel stages a pair's two rows in shared memory, so on the card
+    Ba + Bb may be at most ``MAX_WIDTHS`` (58,112) ids: wider tiles raise
+    ValueError before any launch.
+    """
     a = torch.as_tensor(a, dtype=torch.int32)
-    b = torch.as_tensor(b, dtype=torch.int32, device=a.device)
-    if a.shape[0] != b.shape[0]:
+    on = a.device
+    b = torch.as_tensor(b, dtype=torch.int32, device=on)
+    index_a, index_b, length_a, length_b = (
+        None if t is None else torch.as_tensor(t, dtype=torch.int32, device=on)
+        for t in (index_a, index_b, length_a, length_b))
+    q = a.shape[0] if index_a is None else index_a.shape[0]
+    if q != (b.shape[0] if index_b is None else index_b.shape[0]):
         raise ValueError("intersect_count: a and b disagree on Q")
     if on_cpu(a, "intersect_count"):
-        return intersect_count_ref(a, b)
+        return intersect_count_ref(a, b, index_a, index_b, length_a, length_b)
+    if a.shape[1] + b.shape[1] > MAX_WIDTHS:
+        raise ValueError(f"intersect_count: Ba + Bb = {a.shape[1] + b.shape[1]} ids exceed "
+                         f"the {MAX_WIDTHS} one block's shared memory holds")
     a = cuda_input(a, torch.int32, 2, "intersect_count a")
     b = cuda_input(b, torch.int32, 2, "intersect_count b")
-    q, ba = a.shape
-    bb = b.shape[1]
-    out = torch.empty(q, dtype=torch.int32, device=a.device)
+    ptrs = []
+    for t, what, n in ((index_a, "index_a", q), (index_b, "index_b", q),
+                       (length_a, "length_a", a.shape[0]), (length_b, "length_b", b.shape[0])):
+        if t is not None:
+            t = cuda_input(t, torch.int32, 1, f"intersect_count {what}")
+            if t.shape[0] != n:
+                raise ValueError(f"intersect_count: {what} has {t.shape[0]} entries, "
+                                 f"expected {n}")
+        ptrs.append(t)
+    out = torch.empty(q, dtype=torch.int32, device=on)
     if q:
-        fn = kernel_fn("intersect_count", "intersect_count_launch", "pppliip")
-        check(fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), q, ba, bb,
-                 stream_ptr(a)), "intersect_count")
+        fn = kernel_fn("intersect_count", "intersect_count_launch", "pppppppllliip")
+        check(fn(a.data_ptr(), b.data_ptr(),
+                 *(None if t is None else t.data_ptr() for t in ptrs), out.data_ptr(),
+                 q, a.shape[0], b.shape[0], a.shape[1], b.shape[1], stream_ptr(a)),
+              "intersect_count")
         count_launch(intersect_count)
     return out
 
@@ -53,28 +87,41 @@ def _index(idx, device) -> torch.Tensor:
     return torch.from_numpy(np.asarray(idx, np.int64).reshape(-1)).to(device)
 
 
+def _pair_index(ia, ib, device) -> torch.Tensor:
+    """[2, Q] int32 tile indices of the pairs, uploaded in one copy."""
+    return torch.from_numpy(np.stack([ia, ib]).astype(np.int32)).to(device)
+
+
 def intersect_tiles_view(view, idx_a, idx_b) -> torch.Tensor:
     """|tile_a ∩ tile_b| for pairs of a view's device-resident leaf tiles.
 
     ``idx_a``/``idx_b`` index rows of ``view.to_leaf_blocks_device()`` (the
     delta-plane assembled tile stream — after a small write only the dirty
-    subgraphs' tiles were spliced on device); the gathers happen on device,
-    so warm repeats move no leaf data host->device.
+    subgraphs' tiles were spliced on device).  The kernel reads the named
+    tiles' live prefixes in place (their ``length`` column): only the pair
+    indices go host->device, and no [Q, B] copy is made.
     """
     dev = view.to_leaf_blocks_device()
     if getattr(dev, "groups", None) is not None:
         return _intersect_tiles_tiered(view, dev, idx_a, idx_b)
-    rows = dev.rows
-    return intersect_count(rows[_index(idx_a, view.device)],
-                           rows[_index(idx_b, view.device)])
+    idx = _pair_index(np.asarray(idx_a, np.int64).reshape(-1),
+                      np.asarray(idx_b, np.int64).reshape(-1), view.device)
+    return _count_pairs(dev, idx)
+
+
+def _count_pairs(dev, idx) -> torch.Tensor:
+    """The kernel on single-tier device tiles ``dev`` in place, for the
+    pairs of the uploaded [2, Q] index ``idx``."""
+    return intersect_count(dev.rows, dev.rows, idx[0], idx[1], dev.length, dev.length)
 
 
 def _intersect_tiles_tiered(view, dev, idx_a, idx_b) -> torch.Tensor:
     """Per-(tier_a, tier_b) pair-group dispatch for tiered device tiles.
 
-    Pairs are bucketed by their operands' tiers; each bucket gathers from
-    its two fixed-shape groups and runs one kernel call at the two native
-    widths (the kernel takes ``Ba != Bb``, so nothing is padded).
+    Pairs are bucketed by their operands' tiers; each bucket names its
+    tiles by position in their two fixed-shape groups and runs one kernel
+    call on the groups in place, at the two native widths (the kernel takes
+    ``Ba != Bb``, so nothing is padded or gathered).
     """
     idx_a = np.asarray(idx_a, np.int64).reshape(-1)
     idx_b = np.asarray(idx_b, np.int64).reshape(-1)
@@ -82,39 +129,40 @@ def _intersect_tiles_tiered(view, dev, idx_a, idx_b) -> torch.Tensor:
     ta = tiers[idx_a] if len(idx_a) else np.zeros(0, np.int32)
     tb = tiers[idx_b] if len(idx_b) else np.zeros(0, np.int32)
     out = torch.zeros(len(idx_a), dtype=torch.int32, device=view.device)
-
-    def _gather(t, idx):
-        pos = np.searchsorted(dev.gidx[int(t)], idx)
-        return dev.groups[int(t)][1][_index(pos, view.device)]
-
     for t1 in dev.tiers:
         for t2 in dev.tiers:
             m = (ta == t1) & (tb == t2)
             if not m.any():
                 continue
-            counts = intersect_count(_gather(t1, idx_a[m]), _gather(t2, idx_b[m]))
+            _, rows1, len1 = dev.groups[int(t1)]
+            _, rows2, len2 = dev.groups[int(t2)]
+            idx = _pair_index(np.searchsorted(dev.gidx[int(t1)], idx_a[m]),
+                              np.searchsorted(dev.gidx[int(t2)], idx_b[m]), view.device)
+            counts = intersect_count(rows1, rows2, idx[0], idx[1], len1, len2)
             out[_index(np.nonzero(m)[0], view.device)] = counts
     return out
 
 
-def sum_intersect_tiles_view(view, idx_a, idx_b, batch: int = 8192) -> int:
+def sum_intersect_tiles_view(view, idx_a, idx_b, batch: int = SUM_BATCH) -> int:
     """Sum of |tile_a ∩ tile_b| over many tile pairs, batched on device.
 
     The workhorse of device-path triangle counting: pair lists can reach
-    O(E) entries, so the [pairs, B] gathers are chunked to ``batch`` rows to
-    bound device memory; partial sums are accumulated in int64 on host.
+    O(E) entries, so the pair indices go up in batches of ``batch`` pairs
+    (12 bytes of indices and count each on the device); the batch sums add
+    up in one int64 tensor on the device, read once at the end (one host
+    synchronisation per call).
     """
     idx_a = np.asarray(idx_a, np.int64).reshape(-1)
     idx_b = np.asarray(idx_b, np.int64).reshape(-1)
     if idx_a.shape != idx_b.shape:
         raise ValueError("idx_a and idx_b must have matching shapes")
-    total = 0
+    total = torch.zeros((), dtype=torch.int64, device=view.device)
     for lo in range(0, len(idx_a), batch):
         counts = intersect_tiles_view(
             view, idx_a[lo : lo + batch], idx_b[lo : lo + batch]
         )
-        total += int(counts.sum(dtype=torch.int64))
-    return total
+        total += counts.sum(dtype=torch.int64)
+    return int(total)
 
 
 __all__ = [

@@ -3,6 +3,7 @@ from .ops import (
     leaf_scan_reduce_view,
     leaf_spmm,
     leaf_spmm_view,
+    route,
     spmm_view,
 )
 
@@ -11,5 +12,6 @@ __all__ = [
     "leaf_scan_reduce_view",
     "leaf_spmm",
     "leaf_spmm_view",
+    "route",
     "spmm_view",
 ]

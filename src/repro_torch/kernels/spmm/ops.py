@@ -35,24 +35,44 @@ def leaf_scan_reduce(rows, x) -> torch.Tensor:
 leaf_scan_reduce.launches = 0
 
 
-def leaf_spmm(rows, h) -> torch.Tensor:
+def route(d: int, address: int) -> str:
+    """The route of ``leaf_spmm``'s kernel for H of width ``d`` starting at
+    byte ``address``, a pure function of the two: ``"vec4"`` (16-byte
+    float4 loads of H and out) when d % 4 == 0 and H is 16-byte aligned,
+    ``"scalar"`` (one float per lane) otherwise."""
+    return "vec4" if d % 4 == 0 and address % 16 == 0 else "scalar"
+
+
+def leaf_spmm(rows, h, length=None) -> torch.Tensor:
     """Y[i] = sum over live j of H[rows[i, j]] — the GNN message primitive.
 
-    The kernel gathers rows of H directly (no one-hot, no padding of H).
+    rows: [N, B] int32 tiles; h: [nv, d] f32; length: [N] int32, each
+    tile's live ids (None: all B).  A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel, which reads only each tile's live
+    prefix and gathers rows of H directly (no one-hot, no padding of H),
+    on the route that :func:`route` names.
     """
     rows = torch.as_tensor(rows, dtype=torch.int32)
     h = torch.as_tensor(h, dtype=torch.float32, device=rows.device)
+    if length is not None:
+        length = torch.as_tensor(length, dtype=torch.int32, device=rows.device)
     if on_cpu(rows, "leaf_spmm"):
-        return leaf_spmm_ref(rows, h)
+        return leaf_spmm_ref(rows, h, length)
     rows = cuda_input(rows, torch.int32, 2, "leaf_spmm rows")
     h = cuda_input(h, torch.float32, 2, "leaf_spmm H")
     n, b = rows.shape
     nv, d = h.shape
+    if length is not None:
+        length = cuda_input(length, torch.int32, 1, "leaf_spmm length")
+        if length.shape[0] != n:
+            raise ValueError("leaf_spmm: length and rows disagree on N")
     out = torch.empty((n, d), dtype=torch.float32, device=rows.device)
     if n and d:
-        fn = kernel_fn("leaf_spmm", "leaf_spmm_launch", "pppliilp")
-        check(fn(rows.data_ptr(), h.data_ptr(), out.data_ptr(), n, b, d, nv,
-                 stream_ptr(rows)), "leaf_spmm")
+        vec4 = route(d, h.data_ptr()) == "vec4"
+        fn = kernel_fn("leaf_spmm", "leaf_spmm_launch", "ppppliilip")
+        check(fn(rows.data_ptr(), h.data_ptr(),
+                 None if length is None else length.data_ptr(), out.data_ptr(),
+                 n, b, d, nv, int(vec4), stream_ptr(rows)), "leaf_spmm")
         count_launch(leaf_spmm)
     return out
 
@@ -95,7 +115,8 @@ def leaf_scan_reduce_view(view, x) -> torch.Tensor:
 
 
 def leaf_spmm_view(view, h) -> torch.Tensor:
-    """Per-tile SpMM (GNN messages) over device-resident leaf blocks.
+    """Per-tile SpMM (GNN messages) over device-resident leaf blocks, each
+    tile read over its live prefix (the blocks' ``length`` column).
 
     Tiered pools run the kernel once per tier group and scatter the
     per-group outputs back into global tile order.
@@ -104,11 +125,11 @@ def leaf_spmm_view(view, h) -> torch.Tensor:
     h = torch.as_tensor(h, dtype=torch.float32, device=view.device)
     parts = _tier_groups(blocks)
     if len(parts) == 1 and parts[0][0] is None:
-        return leaf_spmm(blocks.rows, h)
+        return leaf_spmm(blocks.rows, h, blocks.length)
     out = torch.zeros((blocks.n_blocks, h.shape[1]), dtype=torch.float32,
                       device=view.device)
-    for gidx, (_s, rows, _l) in parts:
-        _scatter_rows(out, gidx, leaf_spmm(rows, h))
+    for gidx, (_s, rows, length) in parts:
+        _scatter_rows(out, gidx, leaf_spmm(rows, h, length))
     return out
 
 
@@ -126,8 +147,8 @@ def spmm_view(view, h) -> torch.Tensor:
     h = torch.as_tensor(h, dtype=torch.float32, device=view.device)
     out = torch.zeros((view.n_vertices, h.shape[1]), dtype=torch.float32,
                       device=view.device)
-    for _gidx, (src, rows, _l) in _tier_groups(blocks):
-        out.index_add_(0, src, leaf_spmm(rows, h))
+    for _gidx, (src, rows, length) in _tier_groups(blocks):
+        out.index_add_(0, src, leaf_spmm(rows, h, length))
     return out
 
 
@@ -138,5 +159,6 @@ __all__ = [
     "leaf_spmm_view",
     "leaf_scan_reduce_ref",
     "leaf_spmm_ref",
+    "route",
     "spmm_view",
 ]

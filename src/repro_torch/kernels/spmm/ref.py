@@ -16,13 +16,18 @@ def leaf_scan_reduce_ref(rows: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, x[safe], 0.0).sum(dim=1)
 
 
-def leaf_spmm_ref(rows: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+def leaf_spmm_ref(rows: torch.Tensor, h: torch.Tensor, length=None) -> torch.Tensor:
     """Per-block masked gather-sum of feature rows: Y[i] = sum_j H[rows[i,j]].
 
-    rows: [N, B] int32; h: [n, d] float32. Returns [N, d] float32.
+    rows: [N, B] int32; h: [n, d] float32; length: [N] int32, each row's
+    live ids (None: all B), columns at or past it left out.  SENTINEL is
+    masked either way, so on a row that is a live prefix followed by
+    SENTINEL padding both forms agree.  Returns [N, d] float32.
     Materializes the [N, B, d] gather.
     """
     mask = rows != SENTINEL
+    if length is not None:
+        mask &= torch.arange(rows.shape[1], device=rows.device)[None, :] < length[:, None]
     safe = torch.where(mask, rows, 0).long()
     gathered = h[safe]  # [N, B, d]
     return torch.where(mask[:, :, None], gathered, 0.0).sum(dim=1)

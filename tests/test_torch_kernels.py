@@ -6,7 +6,11 @@ kernel in interpret mode on the CPU, as ``tests/test_kernels.py`` runs it
 version.  Graph kernels (B in {16, 128, 512}, a ragged Q, some
 all-SENTINEL rows): leaf search and intersect must match bitwise,
 scan-reduce within rtol=atol=1e-5 and SpMM within 1e-4 (the sums run in
-another order).  Model kernels: embedding_bag within rtol=atol=1e-5 on
+another order).  The resident-tile forms (an ``index`` into the tiles, a
+live ``length`` per tile, some cut short) are held against the reference
+kernel on the gathered tiles with the dead columns set to SENTINEL:
+intersect bitwise, with repeated ids too, and SpMM within 1e-5 at
+d in {6, 32, 128, 160}.  Model kernels: embedding_bag within rtol=atol=1e-5 on
 ``test_kernels.py``'s grid (sum/mean, weighted and not, 30% -1 padding);
 flash_decode and its partial form within rtol=2e-4, atol=2e-5 in f32 and
 2e-2 in bf16, on ``test_kernels.py``'s cases plus Qwen2.5-14B's grouping
@@ -38,7 +42,7 @@ from repro_torch.kernels.intersect import intersect_count, intersect_count_hybri
 from repro_torch.kernels.intersect.ref import intersect_count_ref
 from repro_torch.kernels.leaf_search import leaf_search
 from repro_torch.kernels.leaf_search.ref import leaf_search_ref
-from repro_torch.kernels.spmm import leaf_scan_reduce, leaf_spmm
+from repro_torch.kernels.spmm import leaf_scan_reduce, leaf_spmm, route as spmm_route
 from repro_torch.kernels.spmm.ref import leaf_scan_reduce_ref, leaf_spmm_ref
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -109,6 +113,59 @@ def intersect_inputs(b, seed=2):
     rng = np.random.default_rng(seed)
     universe = max(2 * b, 64)  # dense enough that rows overlap
     return sorted_rows(rng, Q, b, universe), sorted_rows(rng, Q, b, universe)
+
+
+SPMM_WIDTHS = [6, 32, 128, 160]  # scalar route, one 128-byte row, a warp, two slices
+
+
+def spmm_length_inputs(b, d, seed=7):
+    """gather_inputs' tiles (a live prefix, then SENTINEL) with their live
+    lengths, some cut short (tiles 2, 9, ...) and tile 3's set to 0."""
+    rows, _, h = gather_inputs(b, d=d, seed=seed)
+    length = (rows != SENT).sum(axis=1).astype(np.int32)
+    length[2::7] //= 2
+    length[3] = 0
+    return rows, h, length
+
+
+def live_masked(rows, length):
+    """The rows with columns at or past ``length`` set to SENTINEL: the
+    gathered full-width input the reference kernels take."""
+    return np.where(np.arange(rows.shape[1])[None, :] < length[:, None], rows, SENT)
+
+
+def intersect_tile_inputs(b, n_a=11, n_b=13, seed=8, repeats=False):
+    """Two sets of resident tiles of width b (sorted live prefix, SENTINEL
+    padding; with ``repeats`` ids may repeat), their live lengths with some
+    cut short, and Q pairs naming tiles with repeats (pair 0 an empty tile)."""
+    rng = np.random.default_rng(seed)
+    universe = max(2 * b, 64)
+    if repeats:
+        ta, tb = (np.full((n, b), SENT, np.int32) for n in (n_a, n_b))
+        for t in (ta, tb):
+            for i in range(1, len(t)):
+                k = int(rng.integers(1, b + 1))
+                t[i, :k] = np.sort(rng.integers(0, universe // 4, k))
+    else:
+        ta, tb = sorted_rows(rng, n_a, b, universe), sorted_rows(rng, n_b, b, universe)
+    la = (ta != SENT).sum(axis=1).astype(np.int32)
+    lb = (tb != SENT).sum(axis=1).astype(np.int32)
+    la[1::4] = (la[1::4] * 3) // 4
+    lb[2::5] //= 2
+    ia = rng.integers(0, n_a, Q).astype(np.int32)
+    ib = rng.integers(0, n_b, Q).astype(np.int32)
+    ia[0] = 0  # the empty tile
+    return ta, tb, ia, ib, la, lb
+
+
+def spmm_order_bound(rows, h, length, want):
+    """How far two f32 summation orders of the same tile sums may drift
+    apart: 2 m u Σ_j |H[id_j]| over each tile's m live ids (u = 2^-24),
+    plus rtol=atol=1e-5."""
+    live = (rows != SENT) & (torch.arange(rows.shape[1], device=rows.device)[None, :]
+                             < length[:, None])
+    mag = torch.where(live[..., None], h[torch.where(live, rows, 0).long()].abs(), 0.0)
+    return 1e-5 + 1e-5 * want.abs() + 2 * length[:, None] * 2.0 ** -24 * mag.sum(1)
 
 
 EMBEDDING_BAG_CASES = [(100, 16, 12, 5, "sum"), (1000, 32, 33, 20, "mean"),
@@ -241,6 +298,79 @@ def test_intersect_count_matches_reference(ref, b):
     assert want.sum() > 0
     hybrid = intersect_count_hybrid(torch.from_numpy(a), torch.from_numpy(bb))
     assert np.array_equal(hybrid.numpy(), np.asarray(ref.hybrid(a, bb)))
+
+
+@pytest.mark.parametrize("d", SPMM_WIDTHS)
+@pytest.mark.parametrize("b", WIDTHS)
+def test_leaf_spmm_length_matches_reference(ref, b, d):
+    """Tiles read over their live length (some cut short, one 0) against
+    the reference kernel on the same tiles with the dead columns set to
+    SENTINEL."""
+    rows, h, length = spmm_length_inputs(b, d)
+    want = np.asarray(ref.spmm(live_masked(rows, length), h))
+    args = [torch.from_numpy(x) for x in (rows, h, length)]
+    for got in (leaf_spmm_ref(*args), leaf_spmm(*args)):
+        assert got.shape == want.shape and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    assert not want[3].any()  # the length-0 tile
+
+
+def test_leaf_spmm_route_is_a_function_of_width_and_alignment():
+    """"vec4" for d % 4 == 0 on a 16-byte boundary, "scalar" otherwise (the
+    card tests' d = 6 and an H that starts 4 bytes in)."""
+    assert {spmm_route(d, 0) for d in (4, 32, 128, 160)} == {"vec4"}
+    assert {spmm_route(d, 0) for d in (1, 6, 10)} == {"scalar"}
+    assert spmm_route(128, 4) == "scalar" and spmm_route(128, 48) == "vec4"
+    h = torch.zeros(33 * 8)
+    assert spmm_route(8, h[8:].view(32, 8).data_ptr()) == spmm_route(8, h.data_ptr())
+    assert spmm_route(8, h[1:257].view(32, 8).data_ptr()) == "scalar"
+
+
+@pytest.mark.parametrize("repeats", [False, True], ids=["unique", "repeats"])
+@pytest.mark.parametrize("b", WIDTHS)
+def test_intersect_count_index_length_matches_reference(ref, b, repeats):
+    """Pairs of resident tiles named by index, each read over its live
+    length, bitwise against the reference kernel on the gathered tiles with
+    the dead columns set to SENTINEL; with repeated ids too (all-pairs
+    counts)."""
+    ta, tb, ia, ib, la, lb = intersect_tile_inputs(b, repeats=repeats)
+    want = np.asarray(ref.intersect(live_masked(ta[ia], la[ia]), live_masked(tb[ib], lb[ib])))
+    args = [torch.from_numpy(x) for x in (ta, tb, ia, ib, la, lb)]
+    for got in (intersect_count_ref(*args), intersect_count(*args)):
+        assert got.dtype == torch.int32
+        assert np.array_equal(got.numpy(), want)
+    assert want.sum() > 0 and want[0] == 0
+    # index None: tile i of a against tile i of b
+    want = np.asarray(ref.intersect(live_masked(ta, la), live_masked(tb[:11], lb[:11])))
+    got = intersect_count(args[0], args[1][:11], None, None, args[4], args[5][:11])
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("side", ["a", "b"])
+@pytest.mark.parametrize("bad", [13, -1])
+def test_intersect_count_index_out_of_range_raises(bad, side):
+    """On the CPU an index outside [0, n) raises, as the kernel traps."""
+    ta, tb, ia, ib, la, lb = (torch.from_numpy(x) for x in intersect_tile_inputs(16))
+    (ia if side == "a" else ib)[3] = bad
+    with pytest.raises(IndexError, match=f"index_{side} outside"):
+        intersect_count(ta, tb, ia, ib, la, lb)
+
+
+def test_intersect_count_checks_pairs():
+    ta, tb, ia, ib, la, lb = (torch.from_numpy(x) for x in intersect_tile_inputs(16))
+    with pytest.raises(ValueError, match="disagree on Q"):
+        intersect_count(ta, tb, ia, ib[:-1], la, lb)
+    with pytest.raises(ValueError, match="disagree on Q"):
+        intersect_count(ta, tb[:-1])
+
+
+def test_cpu_index_length_forms_launch_nothing():
+    rows, h, length = (torch.from_numpy(x) for x in spmm_length_inputs(16, 8))
+    ta, tb, ia, ib, la, lb = (torch.from_numpy(x) for x in intersect_tile_inputs(16))
+    before = (leaf_spmm.launches, intersect_count.launches)
+    leaf_spmm(rows, h, length)
+    intersect_count(ta, tb, ia, ib, la, lb)
+    assert (leaf_spmm.launches, intersect_count.launches) == before
 
 
 @pytest.mark.parametrize("weighted", [True, False], ids=["weighted", "unweighted"])
@@ -478,6 +608,96 @@ class TestKernelsOnCard:
         assert torch.equal(intersect_count(a, bb), intersect_count_ref(a, bb))
         narrow = bb[:, : b // 2].contiguous()  # two widths, as tier pairs give
         assert torch.equal(intersect_count(a, narrow), intersect_count_ref(a, narrow))
+
+    @pytest.mark.parametrize("d", SPMM_WIDTHS)
+    @pytest.mark.parametrize("b", WIDTHS)
+    def test_leaf_spmm_length(self, b, d):
+        """The live-prefix kernel on both routes (d = 6, and an H that
+        starts 4 bytes in, take the scalar one) against the plain version,
+        within the drift of two f32 summation orders."""
+        rows, h, length = (torch.from_numpy(x).cuda() for x in spmm_length_inputs(b, d))
+        shifted = torch.empty(h.numel() + 1, device="cuda")[1:].view(h.shape)
+        shifted.copy_(h)
+        for hh in (h, shifted):
+            n0 = leaf_spmm.launches
+            got = leaf_spmm(rows, hh, length)
+            torch.cuda.synchronize()
+            assert leaf_spmm.launches == n0 + 1
+            want = leaf_spmm_ref(rows, hh, length)
+            assert ((got - want).abs() <= spmm_order_bound(rows, hh, length, want)).all()
+        assert spmm_route(d, shifted.data_ptr()) == "scalar"
+        assert not got[3].any()
+
+    @pytest.mark.parametrize("repeats", [False, True], ids=["unique", "repeats"])
+    @pytest.mark.parametrize("b", WIDTHS)
+    def test_intersect_count_index_length(self, b, repeats):
+        """The gather-fused, live-prefix kernel bitwise against the plain
+        version, at equal and at unequal widths and with index None.  The
+        ``unique`` case (b's live ids distinct, as in leaf tiles) takes the
+        branch-free merge path; the ``repeats`` case, where b repeats ids,
+        the walk over each run of equal ids."""
+        ta, tb, ia, ib, la, lb = (torch.from_numpy(x).cuda()
+                                  for x in intersect_tile_inputs(b, repeats=repeats))
+        n0 = intersect_count.launches
+        got = intersect_count(ta, tb, ia, ib, la, lb)
+        torch.cuda.synchronize()
+        assert intersect_count.launches == n0 + 1
+        assert torch.equal(got, intersect_count_ref(ta, tb, ia, ib, la, lb))
+        narrow = tb[:, : b // 2].contiguous()  # two widths, as tier pairs give
+        lb2 = lb.clamp(max=b // 2)
+        assert torch.equal(intersect_count(ta, narrow, ia, ib, la, lb2),
+                           intersect_count_ref(ta, narrow, ia, ib, la, lb2))
+        got = intersect_count(ta, tb[:11], None, None, la, lb[:11])
+        assert torch.equal(got, intersect_count_ref(ta, tb[:11], None, None, la, lb[:11]))
+
+    @pytest.mark.parametrize("widths", [(4096, 4096), (512, 12288), (29056, 29056)],
+                             ids=str)
+    def test_intersect_count_wide_tiles(self, widths):
+        """Wide rows: fewer pairs share a block, down to one pair when
+        Ba + Bb fills a block's shared memory (58,112 ids); one id more
+        raises before any launch."""
+        from repro_torch.kernels.intersect.ops import MAX_WIDTHS
+
+        rng = np.random.default_rng(7)
+        ba, bb = widths
+        n = 4 if ba + bb > 20000 else 24  # the plain version compares all B^2 pairs
+        la = torch.from_numpy(rng.integers(0, ba + 1, n).astype(np.int32)).cuda()
+        lb = torch.from_numpy(rng.integers(0, bb + 1, n).astype(np.int32)).cuda()
+        la[0], lb[0] = ba, bb
+        ta, tb = (torch.sort(torch.randint(0, 2 * max(ba, bb), (n, w), device="cuda",
+                                           dtype=torch.int32), dim=1).values
+                  for w in (ba, bb))
+        ia = torch.randperm(n, device="cuda").to(torch.int32)
+        ib = torch.randperm(n, device="cuda").to(torch.int32)
+        got = intersect_count(ta, tb, ia, ib, la, lb)
+        assert torch.equal(got, intersect_count_ref(ta, tb, ia, ib, la, lb))
+        assert got.sum() > 0
+        n0 = intersect_count.launches
+        too_wide = torch.zeros((2, MAX_WIDTHS + 1 - ba), dtype=torch.int32, device="cuda")
+        with pytest.raises(ValueError, match="shared memory"):
+            intersect_count(ta[:2], too_wide)
+        assert intersect_count.launches == n0
+
+    @pytest.mark.parametrize("bad", [4, -1])
+    def test_intersect_count_index_out_of_range_fails(self, bad):
+        """An index outside [0, n) traps instead of reading past the tiles;
+        the next synchronisation raises (in a child process: a trap leaves
+        the CUDA context unusable)."""
+        code = (
+            "import torch\n"
+            "from repro_torch.kernels.intersect import intersect_count\n"
+            "rows = torch.zeros((4, 16), dtype=torch.int32, device='cuda')\n"
+            f"ib = torch.tensor([0, {bad}, 1], dtype=torch.int32, device='cuda')\n"
+            "intersect_count(rows, rows, ib.flip(0).clamp(0, 3), ib)\n"
+            "try:\n"
+            "    torch.cuda.synchronize()\n"
+            "except RuntimeError:\n"
+            "    print('trapped', flush=True)\n"
+        )
+        env = dict(os.environ, PYTHONPATH=str(SRC))
+        out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                             text=True, timeout=300)
+        assert out.stdout.strip() == "trapped", out.stderr[-2000:]
 
     @pytest.mark.parametrize("weighted", [True, False], ids=["weighted", "unweighted"])
     @pytest.mark.parametrize("case", EMBEDDING_BAG_CASES + [(4096, 32, 1000, 1, "sum")],

@@ -185,3 +185,23 @@ def test_edge_search_view_on_odd_queries(config):
         got = t_edge_search(tv, us, vs)
     assert got.dtype == bool and np.array_equal(got, want)
     assert got[:40].all() and not got[40:43].any()
+
+
+@pytest.mark.parametrize("batch", [1, 5, 1 << 20])
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_sum_intersect_batches_agree(config, batch):
+    """The batched device sum equals the reference's at every batch size
+    (one pair per launch, a ragged last batch, all pairs in one), and the
+    per-pair counts' sum."""
+    tiers = CONFIGS[config]
+    edges = rand_edges(N, 900, 4)
+    r_store = rc.RapidStore.from_edges(N, edges, leaf_tiers=tiers, **STORE_KW)
+    t_store = tc.RapidStore.from_edges(N, edges, leaf_tiers=tiers, device="cpu",
+                                       **STORE_KW)
+    with r_store.read_view() as rv, t_store.read_view() as tv:
+        ctx = make_entry_ctx(rv, seed=6)
+        want = r_sum_intersect(rv, ctx["ia"], ctx["ib"], batch=16)
+        got = t_sum_intersect(tv, ctx["ia"], ctx["ib"], batch=batch)
+        per_pair = t_intersect(tv, ctx["ia"], ctx["ib"])
+    assert isinstance(got, int) and got == want == int(per_pair.sum())
+    assert want > 0
