@@ -20,7 +20,12 @@ script exits non-zero without the last line):
              and the least time the card needs for the same bytes;
              leaf_search searches the candidate tiles in place (index and
              live length), beside torch.searchsorted on a gathered copy and
-             the gather's own time; leaf_spmm reads each tile's live length,
+             the gather's own time; leaf_scan_reduce reads each tile's
+             live length, beside the same kernel over the full width B,
+             the library call on masked weights and on the live ids alone,
+             and three cuts of its work (lengths 0, live ids 0, short and
+             long tiles apart);
+             leaf_spmm reads each tile's live length,
              on the 16,384-tile prefix and over all tiles (beside the same
              kernel over the full width, and the library call over all
              tiles, with ``gathered_bound_ms``: every live id's H row from
@@ -76,8 +81,9 @@ fit on one card.
 
 ``bound_ms`` counts the bytes the function needs on this run's data, not
 the whole tiles: a tile's live ids are a sorted prefix followed by
-SENTINEL padding (checked), so a scan reads the 128-byte lines up to the
-first SENTINEL, the binary searches over the tiles' live prefixes read
+SENTINEL padding (checked), so a read of a live prefix, given its
+length, moves the 32-byte sectors that hold it and that length, the
+binary searches over the tiles' live prefixes read
 each distinct 32-byte sector their probes touch once (queries share
 tiles), a gather reads each distinct x or H row it touches once, and
 the intersections read each distinct tile's live prefix once.
@@ -105,7 +111,8 @@ N_WRITES, N_INS, N_DELS = 20, 256, 64
 N_QUERIES = 4096  # present and as many absent edge-search pairs
 N_PAIRS = 8192  # intersect tile pairs (one sum_intersect batch)
 SPMM_PLAIN_ROWS = 16384  # tiles per plain-SpMM call: it materializes [N, B, d]
-LINE, SECTOR = 128, 32  # bytes: an L2 cache line and a DRAM sector
+SECTOR = 32  # bytes: a DRAM sector
+SHORT_TILE = 32  # live ids: the scan's short tiles (one int4 a lane of its 8)
 LM_ARCH = "qwen2.5-14b"
 MODEL_SMOKE = False  # True takes the archs' SMOKE configs (CPU rehearsal)
 DECODE_SEQ = 32768  # decode_32k's cache length
@@ -231,13 +238,14 @@ def live_lengths(rows):
     return mask.sum(dim=1)
 
 
-def prefix_bytes(lengths, width: int) -> int:
-    """Bytes a scan of each row must read: the 128-byte lines up to and
-    including the first SENTINEL (the whole row when it is full)."""
+def live_bytes(lengths) -> int:
+    """Bytes a read of each row's first ``lengths`` ids must move: the
+    32-byte sectors that hold them (rows start on a sector boundary, as
+    tiles of B = 512 do), none for an empty row."""
     import torch
 
-    lines = torch.div(lengths + 1 + LINE // 4 - 1, LINE // 4, rounding_mode="floor")
-    return int(torch.clamp(lines * LINE, max=width * 4).sum())
+    sectors = torch.div(lengths.long() * 4 + SECTOR - 1, SECTOR, rounding_mode="floor")
+    return int(sectors.sum()) * SECTOR
 
 
 def search_sectors(width: int) -> int:
@@ -441,28 +449,73 @@ def phase_kernels(view, ops, device) -> dict:
            mean_live=float(lengths[li].double().mean()), n_tiles=N)
     del srows, tgt, tgt2, f, p, fr, pr, index, li, sector_ids
 
-    # -- leaf_scan_reduce over the whole view (leaf_scan_reduce_view's shape)
+    # -- leaf_scan_reduce over the whole view (leaf_scan_reduce_view's shape):
+    # each tile read over its live prefix (the tiles' length column), timed
+    # as a graph replay beside the same kernel over the full width B
+    # (no_length_ms), both held against the plain version on every tile;
+    # the library call on masked weights over all B slots (library_ms) and
+    # on the compacted live ids alone (library_live_ms, ids and offsets
+    # built outside the timed call).  Three cuts of the kernel's work show
+    # where its time goes: every length 0 (the length loads and y alone),
+    # every live id replaced by 0 (the same id traffic, every gather on one
+    # line of x), and the tiles of at most SHORT_TILE live ids and the rest,
+    # each gathered into tiles of their own.
+    from repro_torch.kernels.spmm import route as spmm_route
+
     x = ops["x"]
     live = int(lengths.sum())
-    rows_bytes = prefix_bytes(lengths, B)
+    rows_bytes = live_bytes(lengths)
     touched = int(torch.unique(rows[rows != SENTINEL]).numel())
-    y = leaf_scan_reduce(rows, x)
-    yr = leaf_scan_reduce_ref(rows, x)
-    torch.testing.assert_close(y, yr, rtol=1e-5, atol=1e-5)
-    err = max_abs_err(y, yr)
-    del y, yr
+    err = 0.0
+    for ln in (None, length):  # yr, with length, stays for the library's check
+        yr = leaf_scan_reduce_ref(rows, x, ln)
+        y = leaf_scan_reduce(rows, x, ln)
+        torch.testing.assert_close(y, yr, rtol=1e-5, atol=1e-5)
+        err = max(err, max_abs_err(y, yr))
+    zero_len = torch.zeros_like(length)
+    cuts = {"length_0_ms": time_ms(lambda: leaf_scan_reduce(rows, x, zero_len), device, 20,
+                                   graph=True)}
+    zero_ids = torch.where(rows != SENTINEL, 0, rows)
+    cuts["ids_0_ms"] = time_ms(lambda: leaf_scan_reduce(zero_ids, x, length), device, 20,
+                               graph=True)
+    del zero_len, zero_ids
+    short = lengths <= SHORT_TILE
+    for name, sel in (("short", short), ("long", ~short)):
+        part_rows, part_len = rows[sel].contiguous(), length[sel].contiguous()
+        cuts[f"{name}_ms"] = time_ms(lambda: leaf_scan_reduce(part_rows, x, part_len), device,
+                                     20, graph=True)
+        cuts[f"{name}_tiles"], cuts[f"{name}_live"] = int(sel.sum()), int(lengths[sel].sum())
+        del part_rows, part_len
     mask = rows != SENTINEL
     idx = torch.where(mask, rows, 0).long()
     psw = mask.to(torch.float32)
+    live_ids = rows[mask].long()  # tile by tile: each live prefix in order
     del mask
+    starts = torch.cumsum(lengths, 0) - lengths
     x2 = x[:, None].contiguous()
+    # the library call sums each bag in its own order: held within the drift
+    # of two f32 summation orders, 2 m u sum|x| (u = 2^-24), plus 1e-5
+    drift = (1e-5 + 1e-5 * yr.abs() + 2 * lengths * 2.0 ** -24
+             * leaf_scan_reduce_ref(rows, x.abs(), length))
+    if not bool(((F.embedding_bag(live_ids, x2, starts, mode="sum")[:, 0] - yr).abs()
+                 <= drift).all()):
+        raise AssertionError("F.embedding_bag over the live ids is not the scan's function")
+    del y, yr, drift
     record("leaf_scan_reduce", (N, B), err,
-           time_ms(lambda: leaf_scan_reduce(rows, x), device, 20),
-           time_ms(lambda: leaf_scan_reduce_ref(rows, x), device, 2),
+           time_ms(lambda: leaf_scan_reduce(rows, x, length), device, 20, graph=True),
+           time_ms(lambda: leaf_scan_reduce_ref(rows, x, length), device, 2),
            time_ms(lambda: F.embedding_bag(idx, x2, mode="sum", per_sample_weights=psw),
                    device, 5),
-           rows_bytes + touched * 4 + N * 4, live, live_entries=live,
-           tile_bytes=N * B * 4, live_prefix_bytes=rows_bytes, distinct_x=touched)
+           rows_bytes + touched * 4 + N * 4 + N * 4, live,
+           kernel_route=spmm_route(B, rows.data_ptr()),
+           no_length_ms=time_ms(lambda: leaf_scan_reduce(rows, x), device, 10, graph=True),
+           library_live_ms=time_ms(lambda: F.embedding_bag(live_ids, x2, starts, mode="sum"),
+                                   device, 20),
+           # every live id's 32-byte sector of x from HBM (no L2 reuse)
+           gathered_bound_ms=live * SECTOR / HBM_BYTES_PER_S * 1e3,
+           live_entries=live, tile_bytes=N * B * 4, live_prefix_bytes=rows_bytes,
+           distinct_x=touched, short_max_live=SHORT_TILE, **cuts)
+    del live_ids, starts
 
     # -- leaf_spmm over each tile's live prefix (the tiles' length column):
     # timed against the plain version and the library call on a prefix of
@@ -470,8 +523,6 @@ def phase_kernels(view, ops, device) -> dict:
     # of the main path is timed (main_ms), beside the same kernel over the
     # full width B (main_no_length_ms), and held against the plain version
     # chunk by chunk, every tile included.
-    from repro_torch.kernels.spmm import route as spmm_route
-
     H = ops["H"]
     d = H.shape[1]
     n_p = min(N, SPMM_PLAIN_ROWS)
@@ -501,7 +552,7 @@ def phase_kernels(view, ops, device) -> dict:
            time_ms(lambda: leaf_spmm_ref(prow, H, plen), device, 2),
            time_ms(lambda: F.embedding_bag(pidx, H, mode="sum", per_sample_weights=ppsw),
                    device, 5),
-           prefix_bytes(lengths[:n_p], B) + ptouched * d * 4 + n_p * 4 + n_p * d * 4,
+           live_bytes(lengths[:n_p]) + ptouched * d * 4 + n_p * 4 + n_p * d * 4,
            plive * d, kernel_route=spmm_route(d, H.data_ptr()),
            checked_tiles=N, gathered_bytes=plive * d * 4, distinct_h_rows=ptouched,
            main_shape=[N, B, d], main_ms=main_ms, main_no_length_ms=main_no_length_ms,
@@ -531,9 +582,9 @@ def phase_kernels(view, ops, device) -> dict:
     del a, b
     la, lb = lengths[lia], lengths[lib]
     tiles = torch.unique(torch.cat([lia, lib]))
-    # each distinct tile's live-prefix lines and length once, the two
+    # each distinct tile's live-prefix sectors and length once, the two
     # indices and the count per pair; per pair: each pair's two prefixes
-    per_pair, _ = bound(prefix_bytes(la, B) + prefix_bytes(lb, B) + Qi * 4 * 5, 0)
+    per_pair, _ = bound(live_bytes(la) + live_bytes(lb) + Qi * 4 * 5, 0)
     # a merge of the two sorted live prefixes: one compare per element
     record("intersect_count", (Qi, B), max_abs_err(c, cr),
            time_ms(lambda: intersect_count(rows, rows, ia, ib, length, length), device, 50,
@@ -541,7 +592,7 @@ def phase_kernels(view, ops, device) -> dict:
            # the plain version checks the index range on the host, so no graph
            time_ms(lambda: intersect_count_ref(rows, rows, ia, ib, length, length), device, 3),
            None,
-           prefix_bytes(lengths[tiles], B) + int(tiles.numel()) * 4 + Qi * 4 * 3,
+           live_bytes(lengths[tiles]) + int(tiles.numel()) * 4 + Qi * 4 * 3,
            int((la + lb).sum()),
            bound_per_pair_ms=per_pair, distinct_tiles=int(tiles.numel()),
            gathered_ms=gathered_ms, gather_ms=gather_ms,

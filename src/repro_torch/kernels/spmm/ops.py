@@ -10,37 +10,51 @@ from ..runtime import check, count_launch, cuda_input, kernel_fn, on_cpu, stream
 from .ref import leaf_scan_reduce_ref, leaf_spmm_ref
 
 
-def leaf_scan_reduce(rows, x) -> torch.Tensor:
+def route(width: int, address: int) -> str:
+    """The route of a leaf kernel that reads rows of ``width`` 4-byte
+    elements starting at byte ``address``, a pure function of the two:
+    ``"vec4"`` (16-byte loads, four elements a lane) when width % 4 == 0
+    and the data is 16-byte aligned, ``"scalar"`` (one element a lane)
+    otherwise.  ``leaf_spmm`` asks it with H's d and start, and
+    ``leaf_scan_reduce`` with the tile width B and the start of ``rows``."""
+    return "vec4" if width % 4 == 0 and address % 16 == 0 else "scalar"
+
+
+def leaf_scan_reduce(rows, x, length=None) -> torch.Tensor:
     """y[i] = sum over live j of x[rows[i, j]] — the PR scan primitive.
 
-    The kernel gathers ``x`` itself, so the [N, B] gathered values never
-    reach device memory.
+    rows: [N, B] int32 tiles; x: [nx] f32; length: [N] int32, each tile's
+    live ids (None: all B).  A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernel, which reads only each tile's live prefix
+    and gathers ``x`` itself (the [N, B] gathered values never reach
+    device memory), on the route that :func:`route` names for B and rows.
     """
     rows = torch.as_tensor(rows, dtype=torch.int32)
     x = torch.as_tensor(x, dtype=torch.float32, device=rows.device)
+    if length is not None:
+        length = torch.as_tensor(length, dtype=torch.int32, device=rows.device)
     if on_cpu(rows, "leaf_scan_reduce"):
-        return leaf_scan_reduce_ref(rows, x)
+        return leaf_scan_reduce_ref(rows, x, length)
     rows = cuda_input(rows, torch.int32, 2, "leaf_scan_reduce rows")
     x = cuda_input(x, torch.float32, 1, "leaf_scan_reduce x")
     n, b = rows.shape
+    if length is not None:
+        length = cuda_input(length, torch.int32, 1, "leaf_scan_reduce length")
+        if length.shape[0] != n:
+            raise ValueError("leaf_scan_reduce: length and rows disagree on N")
     out = torch.empty(n, dtype=torch.float32, device=rows.device)
     if n:
-        fn = kernel_fn("leaf_scan_reduce", "leaf_scan_reduce_launch", "ppplilp")
-        check(fn(rows.data_ptr(), x.data_ptr(), out.data_ptr(), n, b,
-                 x.shape[0], stream_ptr(rows)), "leaf_scan_reduce")
+        vec4 = route(b, rows.data_ptr()) == "vec4"
+        fn = kernel_fn("leaf_scan_reduce", "leaf_scan_reduce_launch", "pppplilip")
+        check(fn(rows.data_ptr(), x.data_ptr(),
+                 None if length is None else length.data_ptr(), out.data_ptr(),
+                 n, b, x.shape[0], int(vec4), stream_ptr(rows)),
+              "leaf_scan_reduce")
         count_launch(leaf_scan_reduce)
     return out
 
 
 leaf_scan_reduce.launches = 0
-
-
-def route(d: int, address: int) -> str:
-    """The route of ``leaf_spmm``'s kernel for H of width ``d`` starting at
-    byte ``address``, a pure function of the two: ``"vec4"`` (16-byte
-    float4 loads of H and out) when d % 4 == 0 and H is 16-byte aligned,
-    ``"scalar"`` (one float per lane) otherwise."""
-    return "vec4" if d % 4 == 0 and address % 16 == 0 else "scalar"
 
 
 def leaf_spmm(rows, h, length=None) -> torch.Tensor:
@@ -94,7 +108,8 @@ def _scatter_rows(out: torch.Tensor, gidx, y: torch.Tensor) -> None:
 
 
 def leaf_scan_reduce_view(view, x) -> torch.Tensor:
-    """Per-tile scan-reduce over a view's device-resident leaf blocks.
+    """Per-tile scan-reduce over a view's device-resident leaf blocks, each
+    tile read over its live prefix (the blocks' ``length`` column).
 
     ``y[i] = sum_j x[rows[i, j]]`` for tile i of
     ``view.to_leaf_blocks_device()``; warm repeats on an unchanged view read
@@ -107,10 +122,10 @@ def leaf_scan_reduce_view(view, x) -> torch.Tensor:
     x = torch.as_tensor(x, dtype=torch.float32, device=view.device)
     parts = _tier_groups(blocks)
     if len(parts) == 1 and parts[0][0] is None:
-        return leaf_scan_reduce(blocks.rows, x)
+        return leaf_scan_reduce(blocks.rows, x, blocks.length)
     out = torch.zeros(blocks.n_blocks, dtype=torch.float32, device=view.device)
-    for gidx, (_s, rows, _l) in parts:
-        _scatter_rows(out, gidx, leaf_scan_reduce(rows, x))
+    for gidx, (_s, rows, length) in parts:
+        _scatter_rows(out, gidx, leaf_scan_reduce(rows, x, length))
     return out
 
 

@@ -9,10 +9,11 @@ scan-reduce within rtol=atol=1e-5 and SpMM within 1e-4 (the sums run in
 another order).  The resident-tile forms (an ``index`` into the tiles, a
 live ``length`` per tile, some cut short) are held against the reference
 kernel on the gathered tiles with the dead columns set to SENTINEL:
-intersect bitwise, with repeated ids too, and SpMM within 1e-5 at
-d in {6, 32, 128, 160}.  Model kernels: embedding_bag within rtol=atol=1e-5 on
-``test_kernels.py``'s grid (sum/mean, weighted and not, 30% -1 padding);
-flash_decode and its partial form within rtol=2e-4, atol=2e-5 in f32 and
+intersect bitwise, with repeated ids too, scan-reduce within 1e-5, and
+SpMM within 1e-5 at d in {6, 32, 128, 160}.  Model kernels: embedding_bag
+within rtol=atol=1e-5 on ``test_kernels.py``'s grid (sum/mean, weighted
+and not, 30% -1 padding); flash_decode and its partial form within
+rtol=2e-4, atol=2e-5 in f32 and
 2e-2 in bf16, on ``test_kernels.py``'s cases plus Qwen2.5-14B's grouping
 (G=5, dh=128).
 
@@ -126,6 +127,12 @@ def spmm_length_inputs(b, d, seed=7):
     length[2::7] //= 2
     length[3] = 0
     return rows, h, length
+
+
+def scan_length_inputs(b, seed=7):
+    """spmm_length_inputs' tiles and lengths with x, the one column of H."""
+    rows, h, length = spmm_length_inputs(b, 1, seed=seed)
+    return rows, np.ascontiguousarray(h[:, 0]), length
 
 
 def live_masked(rows, length):
@@ -280,6 +287,23 @@ def test_leaf_scan_reduce_matches_reference(ref, b):
 
 
 @pytest.mark.parametrize("b", WIDTHS)
+def test_leaf_scan_reduce_length_matches_reference(ref, b):
+    """Tiles read over their live length (some cut short, one 0) against
+    the reference kernel on the same tiles with the dead columns set to
+    SENTINEL; without ``length`` the full-width form agrees with the live
+    lengths."""
+    rows, x, length = scan_length_inputs(b)
+    want = np.asarray(ref.scan(live_masked(rows, length), x))
+    args = [torch.from_numpy(a) for a in (rows, x, length)]
+    for got in (leaf_scan_reduce_ref(*args), leaf_scan_reduce(*args)):
+        assert got.shape == want.shape and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    assert want[3] == 0  # the length-0 tile
+    live = torch.from_numpy((rows != SENT).sum(axis=1).astype(np.int32))
+    assert torch.equal(leaf_scan_reduce(*args[:2]), leaf_scan_reduce(*args[:2], live))
+
+
+@pytest.mark.parametrize("b", WIDTHS)
 def test_leaf_spmm_matches_reference(ref, b):
     rows, _, h = gather_inputs(b)
     want = np.asarray(ref.spmm(rows, h))
@@ -317,13 +341,20 @@ def test_leaf_spmm_length_matches_reference(ref, b, d):
 
 def test_leaf_spmm_route_is_a_function_of_width_and_alignment():
     """"vec4" for d % 4 == 0 on a 16-byte boundary, "scalar" otherwise (the
-    card tests' d = 6 and an H that starts 4 bytes in)."""
+    card tests' d = 6 and an H that starts 4 bytes in); the scan asks the
+    same function with its tile width B and where ``rows`` starts (the card
+    tests' B = 18 and rows that start 4 bytes in)."""
     assert {spmm_route(d, 0) for d in (4, 32, 128, 160)} == {"vec4"}
     assert {spmm_route(d, 0) for d in (1, 6, 10)} == {"scalar"}
     assert spmm_route(128, 4) == "scalar" and spmm_route(128, 48) == "vec4"
     h = torch.zeros(33 * 8)
     assert spmm_route(8, h[8:].view(32, 8).data_ptr()) == spmm_route(8, h.data_ptr())
     assert spmm_route(8, h[1:257].view(32, 8).data_ptr()) == "scalar"
+    rows = torch.zeros((3, 16), dtype=torch.int32)
+    assert {spmm_route(b, rows.data_ptr()) for b in WIDTHS} == {"vec4"}
+    assert spmm_route(16, rows[1:].data_ptr()) == "vec4"  # 64 bytes in
+    assert spmm_route(18, 0) == "scalar"
+    assert spmm_route(12, rows.view(-1)[1:37].view(3, 12).data_ptr()) == "scalar"
 
 
 @pytest.mark.parametrize("repeats", [False, True], ids=["unique", "repeats"])
@@ -367,10 +398,12 @@ def test_intersect_count_checks_pairs():
 def test_cpu_index_length_forms_launch_nothing():
     rows, h, length = (torch.from_numpy(x) for x in spmm_length_inputs(16, 8))
     ta, tb, ia, ib, la, lb = (torch.from_numpy(x) for x in intersect_tile_inputs(16))
-    before = (leaf_spmm.launches, intersect_count.launches)
+    before = (leaf_scan_reduce.launches, leaf_spmm.launches, intersect_count.launches)
+    leaf_scan_reduce(rows, h[:, 0], length)
     leaf_spmm(rows, h, length)
     intersect_count(ta, tb, ia, ib, la, lb)
-    assert (leaf_spmm.launches, intersect_count.launches) == before
+    assert (leaf_scan_reduce.launches, leaf_spmm.launches,
+            intersect_count.launches) == before
 
 
 @pytest.mark.parametrize("weighted", [True, False], ids=["weighted", "unweighted"])
@@ -523,6 +556,27 @@ def test_launch_counter_is_exact_across_threads():
     assert wrapper.launches == 80000
 
 
+def test_launch_signatures_match_the_sources():
+    """Every ``kernel_fn`` call's ctypes argtypes spell the C signature of
+    its launch function in ``csrc/``: a missing letter would pass the
+    stream as an int and crash the card run, not a CPU test."""
+    import re
+
+    letter = {"void*": "p", "long long": "l", "int": "i", "float": "f"}
+    sigs = {}
+    for src in (SRC / "repro_torch" / "csrc").glob("*.cu"):
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
+            types = [re.sub(r"\bconst\b|\s*\w+$", "", q.strip()).replace(" *", "*").strip()
+                     for q in params.split(",")]
+            sigs[(src.stem, name)] = "".join(letter[t] for t in types)
+    calls = []
+    for ops in (SRC / "repro_torch" / "kernels").rglob("ops.py"):
+        calls += re.findall(r'kernel_fn\("(\w+)", "(\w+)", "(\w+)"\)', ops.read_text())
+    assert {(stem, symbol) for stem, symbol, _ in calls} == set(sigs)
+    for stem, symbol, argtypes in calls:
+        assert sigs[(stem, symbol)] == argtypes, (stem, symbol)
+
+
 def test_other_devices_raise():
     rows = torch.zeros((4, 16), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
@@ -595,6 +649,39 @@ class TestKernelsOnCard:
         got = leaf_scan_reduce(rows, x)
         torch.testing.assert_close(got, leaf_scan_reduce_ref(rows, x),
                                    rtol=1e-5, atol=1e-5)
+
+    @pytest.mark.parametrize("b", WIDTHS + [18])
+    def test_leaf_scan_reduce_length(self, b):
+        """The live-prefix kernel on both routes (B = 18, and rows that
+        start 4 bytes in, take the scalar one) against the plain version,
+        within the drift of two f32 summation orders."""
+        rows, x, length = (torch.from_numpy(a).cuda() for a in scan_length_inputs(b))
+        shifted = torch.empty(rows.numel() + 1, dtype=torch.int32, device="cuda")[1:]
+        shifted = shifted.view(rows.shape)
+        shifted.copy_(rows)
+        for rr in (rows, shifted):
+            n0 = leaf_scan_reduce.launches
+            got = leaf_scan_reduce(rr, x, length)
+            torch.cuda.synchronize()
+            assert leaf_scan_reduce.launches == n0 + 1
+            want = leaf_scan_reduce_ref(rr, x, length)
+            drift = spmm_order_bound(rr, x[:, None], length, want[:, None])[:, 0]
+            assert ((got - want).abs() <= drift).all()
+        assert spmm_route(b, rows.data_ptr()) == ("vec4" if b % 4 == 0 else "scalar")
+        assert spmm_route(b, shifted.data_ptr()) == "scalar"
+        assert got[3] == 0
+
+    @pytest.mark.parametrize("b", WIDTHS + [18])
+    def test_leaf_scan_reduce_without_length_is_full_width(self, b):
+        """``length=None`` reads all B slots: the same sums as lengths of B,
+        and, on tiles that are a live prefix then SENTINEL, as their live
+        lengths."""
+        rows, x, _ = (torch.from_numpy(a).cuda() for a in gather_inputs(b))
+        full = torch.full((rows.shape[0],), b, dtype=torch.int32, device="cuda")
+        live = (rows != SENT).sum(dim=1).to(torch.int32)
+        got = leaf_scan_reduce(rows, x)
+        assert torch.equal(got, leaf_scan_reduce(rows, x, full))
+        assert torch.equal(got, leaf_scan_reduce(rows, x, live))
 
     @pytest.mark.parametrize("b", WIDTHS)
     def test_leaf_spmm(self, b):
