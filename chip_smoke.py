@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive repro_torch's snapshot read path once on one CUDA card.
+"""Drive repro_torch's snapshot read path, its write side and its model
+paths once on one CUDA card.
 
     python3 chip_smoke.py                 # the deployment below, one card
 
@@ -7,7 +8,8 @@ Deployment: the paper's own settings, |P|=64 and B=512 (configs/rapidstore,
 paper section 6.5), ``high_threshold`` at its default, on a directed
 Graph500 R-MAT graph (a=0.57, b=0.19, c=0.19) of scale 22 and edge factor
 16: 4,194,304 vertices and about 67M edges, made from ``--seed``.  Triangle
-counting runs on an undirected simple store of scale 18.
+counting runs on an undirected simple store of scale 18, durability on a
+directed tiered store of scale 18.
 
 Phases, each printing one JSON line (a failing phase raises, and the
 script exits non-zero without the last line):
@@ -39,6 +41,30 @@ script exits non-zero without the last line):
 4. isolation the pinned R0 answers bitwise as before the writes
 5. readers   two reader threads repeat queries on their own pinned views
              while the main thread commits
+5a. write_side  on the main store: a write pipeline (4 shards, batches up
+             to 1024), 4 writer threads each submitting 50 transactions with
+             ``apply_async`` while two reader threads repeat edge search and
+             scan-reduce on their pinned views; a compactor fold while one
+             reader stays pinned (its answers must not change); 20 more
+             pipelined writes; the entry points on a fresh view R2 (checks
+             and the CPU route as in phase 3, uploads bounded by the
+             snapshots without device tiles), then a warm repeat with zero
+             uploads; commits/s, group sizes, fold seconds and report, R2's
+             cold view with the assembler counters, ``memory_breakdown()``
+5b. durability  a directed R-MAT store of scale 18 with the paper's skew
+             tiers (64, 512): WAL with fsync and the compactor's checkpoint
+             under one temporary directory, 200 pipelined writes, a fold
+             with a checkpoint, 20 more writes; then ``RapidStore.recover``
+             on the card (R) and on the CPU (C).  R's edge set equals the
+             live view's; R's and C's leaf streams are bitwise equal; edge
+             search, BFS, SSSP, WCC and triangles on R equal the live
+             view's on the card bitwise, SpMM and PageRank within
+             tolerance; the other entry points on R on the card equal C's
+             CPU route (integers bitwise, scan-reduce and PageRank 1e-5,
+             SpMM 1e-4), and R's triangle count equals a host count of the
+             same sum by another algorithm (the CPU route's plain
+             intersect of every tile pair's [Ba, Bb] ids is too slow at
+             this scale)
 6. triangles triangle_count_view on the card, cold then warm, ==
              triangle_count_fast on host; then, uncounted, the warm call's
              split: host enumeration of the tile pairs, index uploads, the
@@ -70,14 +96,18 @@ script exits non-zero without the last line):
              (1,000,000 candidates), each against the plain route
 10. the ``kernels`` line, then the ``ok`` line.
 
-The launch counters are set to 0 just before each of phases 3-6, 8 and 9
-and read just after it; every kernel a phase calls must have launched in
-it.  The ``kernels`` line's ``launches`` is the count on each kernel's own
-path (phase 3 for the graph kernels, 8 for flash_decode, 9 for
+The launch counters are set to 0 just before each of phases 3-6, 5a, 5b,
+8 and 9 and read just after it; every kernel a phase calls must have
+launched in it.  The ``kernels`` line's ``launches`` is the count on each
+kernel's own path (phase 3 for the graph kernels, 8 for flash_decode, 9 for
 embedding_bag), and ``launches_by_path`` holds every phase's.  The
-comparisons of phases 2 and 7 do not count.  The one scale cut:
+comparisons of phases 2 and 7 do not count.  The scale cuts:
 decode_32k's global batch is 4, not 128, so that its cache and weights
-fit on one card.
+fit on one card; the durability store is of scale 18, not 22, because
+recovery rebuilds the store with ``from_edges`` (246.7 s at scale 22 on
+the host), twice here; its SpMM width is 16 and its intersect pairs
+1,024, because its CPU route materializes [tiles, B, d] and
+[pairs, Ba, Bb].
 
 ``bound_ms`` counts the bytes the function needs on this run's data, not
 the whole tiles: a tile's live ids are a sorted prefix followed by
@@ -108,6 +138,13 @@ SCALE = 22  # R-MAT scale of the main store (below 21 the writes cannot splice)
 TC_SCALE = 18  # R-MAT scale of the undirected triangle-count store
 D_FEATURES = 128  # SpMM width: a common GNN hidden width
 N_WRITES, N_INS, N_DELS = 20, 256, 64
+WS_WRITERS, WS_TXNS, WS_MORE = 4, 50, 20  # write_side: 4 writers x 50 txns, 20 after the fold
+DUR_SCALE = 18  # durability: recovery rebuilds with from_edges (246.7 s at 22)
+DUR_TIERS = (64, 512)  # the paper's skew tiers (section 6.2)
+DUR_WRITES, DUR_MORE = 200, 20  # pipelined writes before and after the checkpoint
+DUR_PAIRS = 1024  # intersect pairs: the CPU route holds [pairs, 512, 512] compares
+DUR_D = 16  # SpMM width: the CPU route materializes [tiles, B, d]
+JOIN_S = 900  # every thread's join limit
 N_QUERIES = 4096  # present and as many absent edge-search pairs
 N_PAIRS = 8192  # intersect tile pairs (one sum_intersect batch)
 SPMM_PLAIN_ROWS = 16384  # tiles per plain-SpMM call: it materializes [N, B, d]
@@ -321,7 +358,7 @@ def phase_build() -> None:
 # ---------------------------------------------------------------------------
 # Data
 # ---------------------------------------------------------------------------
-def build_store(scale: int, seed: int, device, undirected: bool = False):
+def build_store(scale: int, seed: int, device, undirected: bool = False, leaf_tiers=None):
     from repro_torch.configs import CONFIG
     from repro_torch.core import RapidStore
     from repro_torch.graph import rmat_edges
@@ -332,12 +369,14 @@ def build_store(scale: int, seed: int, device, undirected: bool = False):
     store = RapidStore.from_edges(
         1 << scale, edges, undirected=undirected,
         partition_size=CONFIG.partition_size, B=CONFIG.leaf_width, device=device,
+        leaf_tiers=leaf_tiers,
     )
     return store, {"generate_s": t1 - t0, "build_s": time.perf_counter() - t1,
                    "n_vertices": 1 << scale, "edges_generated": int(len(edges))}
 
 
-def make_operands(view, seed: int, device, with_h: bool = True):
+def make_operands(view, seed: int, device, with_h: bool = True, n_pairs: int = N_PAIRS,
+                  d: int = D_FEATURES):
     """Query operands for one view, made from ``seed`` (numpy on the host,
     torch on the device for the large float inputs)."""
     import numpy as np
@@ -359,11 +398,11 @@ def make_operands(view, seed: int, device, with_h: bool = True):
     # intersect pairs: the first leaf of each endpoint of sampled edges
     bsrc, order = view_assembler.block_src_index(view)
     s_sorted = bsrc[order]
-    e = rng.choice(len(src), 2 * N_PAIRS, replace=False)
+    e = rng.choice(len(src), 2 * n_pairs, replace=False)
     u, v = src[e].astype(np.int64), dst[e].astype(np.int64)
     lo_u, lo_v = np.searchsorted(s_sorted, u), np.searchsorted(s_sorted, v)
     has_v = (lo_v < len(s_sorted)) & (s_sorted[np.minimum(lo_v, len(s_sorted) - 1)] == v)
-    ia, ib = order[lo_u[has_v]][:N_PAIRS], order[lo_v[has_v]][:N_PAIRS]
+    ia, ib = order[lo_u[has_v]][:n_pairs], order[lo_v[has_v]][:n_pairs]
     g = torch.Generator(device=device).manual_seed(seed)
     return {
         "queries": queries,
@@ -372,8 +411,7 @@ def make_operands(view, seed: int, device, with_h: bool = True):
         "ib": ib,
         "x": torch.randn(n, generator=g, device=device),
         "w": torch.rand(len(src), generator=g, device=device) + 0.1,
-        "H": (torch.randn((n, D_FEATURES), generator=g, device=device)
-              if with_h else None),
+        "H": torch.randn((n, d), generator=g, device=device) if with_h else None,
     }
 
 
@@ -614,8 +652,9 @@ ENTRY_POINTS = (
 )
 
 
-def run_entry_points(view, ops, device) -> tuple:
-    """The view-level entry points on ``view``: (results, seconds each)."""
+def run_entry_points(view, ops, device, names=ENTRY_POINTS) -> tuple:
+    """The view-level entry points ``names`` on ``view``: (results,
+    seconds each)."""
     from repro_torch.core import analytics as A
     from repro_torch.kernels.intersect import intersect_tiles_view, sum_intersect_tiles_view
     from repro_torch.kernels.leaf_search import edge_search_view
@@ -636,7 +675,7 @@ def run_entry_points(view, ops, device) -> tuple:
         "wcc_view": lambda: A.wcc_view(view),
     }
     res, secs = {}, {}
-    for name in ENTRY_POINTS:
+    for name in names:
         res[name], secs[name] = wall(calls[name], device)
     secs["bfs_iterations"] = A.bfs_coo.iterations
     secs["sssp_iterations"] = A.sssp_coo.iterations
@@ -687,9 +726,10 @@ def check_results(view, ops, res) -> dict:
         raise AssertionError("a present edge was not found")
     if int(res["intersect_tiles_view"].sum()) != res["sum_intersect_tiles_view"]:
         raise AssertionError("sum_intersect_tiles_view != intersect_tiles_view sum")
+    d = ops["H"].shape[1]
     shapes = {
-        "leaf_scan_reduce_view": (n_blocks,), "leaf_spmm_view": (n_blocks, D_FEATURES),
-        "spmm_view": (n, D_FEATURES), "pagerank_view": (n,), "bfs_view": (n,),
+        "leaf_scan_reduce_view": (n_blocks,), "leaf_spmm_view": (n_blocks, d),
+        "spmm_view": (n, d), "pagerank_view": (n,), "bfs_view": (n,),
         "sssp_view": (n,), "wcc_view": (n,),
     }
     for name, shape in shapes.items():
@@ -895,6 +935,343 @@ def phase_readers(store, seed, device, repeats: int = 4, commits: int = 10) -> N
     if errors:
         raise errors[0]
     emit("readers", readers=stats, commits=commits, commit_s=commit_s)
+
+
+def phase_write_side(store, seed, device) -> None:
+    """Phase 5a on the main store: pipelined writers with two pinned
+    readers, a fold while one reader stays pinned, more writes, and the
+    entry points on a fresh view R2."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import device_cache, view_assembler
+    from repro_torch.kernels.leaf_search import edge_search_view
+    from repro_torch.kernels.spmm import leaf_scan_reduce_view
+
+    errors, readers = [], {}
+    ready = [threading.Event(), threading.Event()]
+    stop = [threading.Event(), threading.Event()]
+
+    def reader(k):
+        """Repeat two queries on a pinned view until told to stop, then
+        once more; every answer must equal the first bit for bit."""
+        try:
+            h = store.begin_read()
+            try:
+                ops = make_operands(h.view, seed + 20 + k, device, with_h=False)
+                q = ops["queries"]
+
+                def ask():
+                    out = (edge_search_view(h.view, q[:, 0], q[:, 1]),
+                           leaf_scan_reduce_view(h.view, ops["x"]))
+                    sync(device)
+                    return out
+
+                base = ask()
+                ready[k].set()
+                repeats = 0
+                while True:
+                    last = stop[k].is_set()
+                    e, s = ask()
+                    if not (np.array_equal(e, base[0]) and torch.equal(s, base[1])):
+                        raise AssertionError(f"reader {k}: answers changed")
+                    repeats += 1
+                    if last:
+                        break
+                readers[k] = {"ts": h.ts, "repeats": repeats}
+            finally:
+                store.end_read(h)
+        except BaseException as exc:  # re-raised on the main thread
+            errors.append(exc)
+            ready[k].set()
+
+    def join(threads):
+        for t in threads:
+            t.join(timeout=JOIN_S)
+            if t.is_alive():
+                raise AssertionError(f"{t.name} did not finish")
+        if errors:
+            raise errors[0]
+
+    def writer(k):
+        try:
+            for t in [store.apply_async(i, d) for i, d in first[k::WS_WRITERS]]:
+                t.wait()
+        except BaseException as exc:
+            errors.append(exc)
+
+    rthreads = [threading.Thread(target=reader, args=(k,), name=f"reader {k}", daemon=True)
+                for k in range(2)]
+    wthreads = [threading.Thread(target=writer, args=(k,), name=f"writer {k}", daemon=True)
+                for k in range(WS_WRITERS)]
+    try:
+        for t in rthreads:
+            t.start()
+        for e in ready:
+            if not e.wait(timeout=JOIN_S):
+                raise AssertionError("a reader did not start")
+        if errors:
+            raise errors[0]
+        wp = store.attach_write_pipeline()  # 4 shards, batches up to 1024
+        rng = np.random.default_rng(seed + 4)
+        with store.read_view() as v:
+            batches = random_writes(v, rng, WS_WRITERS * WS_TXNS + WS_MORE)
+        first, more = batches[:WS_WRITERS * WS_TXNS], batches[WS_WRITERS * WS_TXNS:]
+        t0 = time.perf_counter()
+        for t in wthreads:
+            t.start()
+        join(wthreads)
+        store.flush()
+        commit_s = time.perf_counter() - t0
+        pipe = {f: getattr(wp.stats, f) for f in (
+            "writes", "batches", "fences", "noop_batches", "publish_runs", "max_batch",
+            "max_publish_run")}
+        stop[0].set()
+        join(rthreads[:1])
+        comp = store.attach_compactor()
+        live0 = store.pool.n_live_rows()
+        report, fold_s = wall(comp.compact_once, device)  # reader 1 stays pinned
+        stop[1].set()
+        join(rthreads[1:])
+    finally:  # a failed phase leaves no reader looping
+        for e in stop:
+            e.set()
+
+    t0 = time.perf_counter()
+    for t in [store.apply_async(i, d) for i, d in more]:
+        t.wait()
+    store.flush()
+    more_s = time.perf_counter() - t0
+
+    fields = ("splices", "full_concats", "base_splices", "reuses", "snapshot_touches",
+              "fallback_no_pred", "fallback_lineage", "fallback_dirty_frac")
+    va0 = {f: getattr(view_assembler.stats, f) for f in fields}
+    up0 = device_cache.stats.snapshot()
+    r2 = store.begin_read()
+    cold_tiles = sum(s._dev_blocks_cache is None for s in r2.view.snaps)
+    cold_coo = sum(s._dev_coo_cache is None for s in r2.view.snaps)
+    _, blocks_s = wall(r2.view.to_leaf_blocks_device, device)
+    _, coo_s = wall(r2.view.to_coo_device, device)
+    up1 = device_cache.stats.snapshot()
+    uploads = up1[2] - up0[2]
+    # O(dirty): a snapshot uploads its 3 stream arrays and 2 COO arrays once
+    if uploads > 3 * cold_tiles + 2 * cold_coo:
+        raise AssertionError(f"R2 uploaded {uploads} arrays for {cold_tiles} snapshots "
+                             f"without tiles and {cold_coo} without COO")
+    assembler = {f: getattr(view_assembler.stats, f) - va0[f] for f in fields}
+    ops2 = make_operands(r2.view, seed + 25, device)
+    res2, secs2 = run_entry_points(r2.view, ops2, device)
+    chk2 = check_results(r2.view, ops2, res2)
+    chk2.update(check_cpu_route(r2.view, ops2, res2))
+    del res2
+    up = device_cache.stats.uploads
+    _, secs_warm = run_entry_points(r2.view, ops2, device)
+    warm_uploads = device_cache.stats.uploads - up
+    if warm_uploads:
+        raise AssertionError(f"R2's warm repeat uploaded {warm_uploads} arrays")
+    store.end_read(r2)
+
+    mem = store.memory_breakdown()
+    if mem["pipeline"] != wp.queued_bytes() or mem["pipeline"]:
+        raise AssertionError(f"flushed pipeline still holds {mem['pipeline']} bytes")
+    if sum(mem.values()) != store.memory_bytes():
+        raise AssertionError("memory_breakdown does not add up to memory_bytes")
+    base = store._base_assembly
+    store.detach_write_pipeline()
+    store.detach_compactor()
+    emit("write_side", writers=WS_WRITERS, txns=len(first), txns_after_fold=len(more),
+         commit_s=commit_s, commits_per_s=len(first) / commit_s, pipeline=pipe,
+         mean_group=pipe["writes"] / max(1, pipe["batches"]), readers=readers,
+         fold_s=fold_s, report={k: v for k, v in vars(report).items() if k != "repacked"},
+         repacked=len(report.repacked), live_rows_before_fold=live0,
+         tier_migrations=store.stats.get("tier_migrations", 0),
+         more_s=more_s, r2_cold_blocks_s=blocks_s, r2_cold_coo_s=coo_s,
+         r2_uploads=uploads, r2_bytes_uploaded=up1[3] - up0[3],
+         r2_snapshots_without_tiles=cold_tiles, r2_snapshots_without_coo=cold_coo,
+         r2_assembler=assembler, r2_query_s=secs2, r2_checks=chk2,
+         warm_query_s=secs_warm, warm_uploads=warm_uploads, memory_breakdown=mem,
+         base_bundle_bytes={"host": base.host_bytes(), "device": base.device_bytes()})
+
+
+def phase_durability(seed, device) -> None:
+    """Phase 5b: WAL, checkpoint and recovery of a tiered store on the
+    card; the recovered view held against the live one and, entry point
+    by entry point, against the same layout on the CPU route."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import RapidStore
+    from repro_torch.core.analytics import triangle_count_view
+    from repro_torch.core.wal import WriteAheadLog
+
+    cpu = torch.device("cpu")
+    store, info = build_store(DUR_SCALE, seed, device, leaf_tiers=DUR_TIERS)
+    rng = np.random.default_rng(seed + 30)
+    with store.read_view() as v:
+        batches = random_writes(v, rng, DUR_WRITES + DUR_MORE)
+    ckpt_s = []
+    checkpoint = store.checkpoint
+
+    def timed_checkpoint(directory):
+        t0 = time.perf_counter()
+        ts = checkpoint(directory)
+        ckpt_s.append(time.perf_counter() - t0)
+        return ts
+
+    store.checkpoint = timed_checkpoint  # the compactor's checkpoint cycle calls it
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_durability_") as root:
+        wal_path = os.path.join(root, "wal.log")
+        store.attach_wal(wal_path)  # fsync on every commit
+        comp = store.attach_compactor(checkpoint_dir=os.path.join(root, "checkpoints"))
+        store.attach_write_pipeline()
+        t0 = time.perf_counter()
+        for t in [store.apply_async(i, d) for i, d in batches[:DUR_WRITES]]:
+            t.wait()
+        write_s = time.perf_counter() - t0
+        report, fold_s = wall(lambda: comp.compact_once(checkpoint=True), device)
+        t0 = time.perf_counter()
+        for t in [store.apply_async(i, d) for i, d in batches[DUR_WRITES:]]:
+            t.wait()
+        store.flush()
+        more_s = time.perf_counter() - t0
+        wal_bytes = store.wal.size_bytes()
+        store.detach_write_pipeline()
+        store.detach_compactor()
+        store.detach_wal()
+        _, records, clean = WriteAheadLog.replay(wal_path)
+        live = store.begin_read()
+        rec, rec_s = wall(lambda: RapidStore.recover(root, attach=False, device=device),
+                          device)
+        twin, twin_s = wall(lambda: RapidStore.recover(root, attach=False, device="cpu"),
+                            device)
+    if rec.device.type != device.type or not clean:
+        raise AssertionError("recovery left the device or found a torn log")
+    rh, th = rec.begin_read(), twin.begin_read()
+    L, R, C = live.view, rh.view, th.view
+    _, blocks_s = wall(R.to_leaf_blocks_device, device)
+    _, coo_s = wall(R.to_coo_device, device)
+    tiers = sorted(R.to_leaf_blocks_device().groups)
+    if tiers != list(DUR_TIERS):
+        raise AssertionError(f"the recovered store's device tiles hold tiers {tiers}")
+    for a, b in zip(L.to_coo(), R.to_coo()):
+        if not np.array_equal(a, b):
+            raise AssertionError("the recovered edge set differs from the live one")
+    for a, b in zip(stream_arrays(R), stream_arrays(C)):
+        if not np.array_equal(a, b):
+            raise AssertionError("two recoveries differ in their leaf streams")
+
+    # answers that do not depend on the layout: the live view on the card
+    # (the tile-indexed ones are not: L's tile indices do not name R's tiles)
+    layout_free = ("edge_search_view", "spmm_view", "pagerank_view", "bfs_view",
+                   "sssp_view", "wcc_view")
+    ops = make_operands(L, seed + 31, device, n_pairs=DUR_PAIRS, d=DUR_D)
+    res_l, _ = run_entry_points(L, ops, device, layout_free)
+    res_r, _ = run_entry_points(R, ops, device, layout_free)
+    tri_l, tri_l_s = wall(lambda: triangle_count_view(L), device)
+    tri_r, tri_r_s = wall(lambda: triangle_count_view(R), device)
+    if tri_l != tri_r:
+        raise AssertionError(f"triangle_count_view: recovered {tri_r} != live {tri_l}")
+    live_err = hold(res_l, res_r, layout_free)
+    del res_l, res_r
+
+    # every entry point on R on the card against the same layout on the CPU
+    ops = make_operands(R, seed + 32, device, n_pairs=DUR_PAIRS, d=DUR_D)
+    res_r, secs_r = run_entry_points(R, ops, device)
+    chk = check_results(R, ops, res_r)
+    ops_c = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in ops.items()}
+    res_c, secs_c = run_entry_points(C, ops_c, cpu)
+    cpu_err = hold(res_c, res_r, ENTRY_POINTS)
+    # the triangle count's plain route intersects every tile pair's
+    # [Ba, Bb] ids on the host, too slow here: a host count of the same sum
+    tri_host, tri_host_s = wall(lambda: full_neighbour_triangles(C.to_csr()), device)
+    if tri_host != tri_r:
+        raise AssertionError(f"triangle_count_view {tri_r} != host count {tri_host}")
+    for h, s in ((live, store), (rh, rec), (th, twin)):
+        s.end_read(h)
+    emit("durability", scale=DUR_SCALE, leaf_tiers=list(DUR_TIERS), **info,
+         writes=DUR_WRITES, writes_after_checkpoint=DUR_MORE, write_s=write_s,
+         more_s=more_s, fold_and_checkpoint_s=fold_s, checkpoint_s=ckpt_s,
+         report={k: v for k, v in vars(report).items() if k != "repacked"},
+         repacked=len(report.repacked), wal_bytes=wal_bytes, wal_records=len(records),
+         wal_replayed=rec.stats["wal_replayed"],
+         tier_migrations=store.stats.get("tier_migrations", 0),
+         tier_migrations_held=store.stats.get("tier_migrations_held", 0),
+         recover_s=rec_s, recover_cpu_s=twin_s, r_cold_blocks_s=blocks_s, r_cold_coo_s=coo_s,
+         tiers=tiers, triangles=tri_r,
+         triangle_s={"live": tri_l_s, "recovered": tri_r_s, "host": tri_host_s},
+         r_checks=chk, live_vs_recovered=live_err, card_vs_cpu=cpu_err,
+         r_query_s=secs_r, cpu_query_s=secs_c)
+
+
+def full_neighbour_triangles(csr, chunk: int = 1 << 22) -> int:
+    """``triangle_count_view``'s function on the host, by another
+    algorithm: the sum over edges (u, v), u < v, of |N(u) & N(v)| over the
+    full out-neighbour lists, divided by 3.  Each edge's shorter list is
+    probed in the sorted edge keys u * n + w (``torch.searchsorted`` on
+    the CPU), ``chunk`` probes at a time."""
+    import numpy as np
+    import torch
+
+    off = np.asarray(csr.offsets, np.int64)
+    idx = np.asarray(csr.indices, np.int64)
+    n = len(off) - 1
+    deg = np.diff(off)
+    src = np.repeat(np.arange(n, dtype=np.int64), deg)
+    keys = torch.from_numpy(src * n + idx)  # sorted: rows in order, each sorted
+    fwd = idx > src
+    a, b = src[fwd], idx[fwd]
+    swap = deg[b] < deg[a]
+    a, b = np.where(swap, b, a), np.where(swap, a, b)
+    da = deg[a]
+    ends = np.cumsum(da)
+    total, lo = 0, 0
+    while lo < len(a):
+        start = int(ends[lo - 1]) if lo else 0
+        hi = max(lo + 1, int(np.searchsorted(ends, start + chunk, "right")))
+        ca, cb, cd = a[lo:hi], b[lo:hi], da[lo:hi]
+        rank = np.arange(int(cd.sum()), dtype=np.int64) - np.repeat(np.cumsum(cd) - cd, cd)
+        q = torch.from_numpy(np.repeat(cb, cd) * n + idx[np.repeat(off[ca], cd) + rank])
+        pos = torch.searchsorted(keys, q).clamp_(max=len(keys) - 1)
+        total += int((keys[pos] == q).sum())
+        lo = hi
+    return total // 3
+
+
+def stream_arrays(view):
+    s = view.to_leaf_stream()
+    return (s.data, s.leaf_offsets, s.leaf_lens, s.leaf_keys, s.leaf_tiers)
+
+
+# integers bitwise; float sums within the North star's tolerances (rtol = atol)
+TOLERANCE = {"leaf_scan_reduce_view": 1e-5, "pagerank_view": 1e-5,
+             "leaf_spmm_view": 1e-4, "spmm_view": 1e-4}
+
+
+def hold(want: dict, got: dict, names) -> dict:
+    """``got`` against ``want`` per entry point: bitwise for integers and
+    SSSP, within ``TOLERANCE`` for float sums; returns the largest
+    absolute difference of each float entry point."""
+    import numpy as np
+    import torch
+
+    errs = {}
+    for name in names:
+        w, g = want[name], got[name]
+        if isinstance(w, torch.Tensor):
+            w, g = w.cpu(), g.cpu()
+        else:
+            w, g = torch.as_tensor(np.asarray(w)), torch.as_tensor(np.asarray(g))
+        tol = TOLERANCE.get(name)
+        if tol is None:
+            if not torch.equal(w, g):
+                raise AssertionError(f"{name} differs bitwise")
+            continue
+        torch.testing.assert_close(g, w, rtol=tol, atol=tol, msg=lambda m, n=name: f"{n}: {m}")
+        errs[name] = float((g.double() - w.double()).abs().max()) if w.numel() else 0.0
+    return errs
 
 
 def phase_triangles(scale: int, seed: int, device):
@@ -1406,6 +1783,8 @@ PATH_KERNELS = {
     "main": ("leaf_search", "leaf_scan_reduce", "leaf_spmm", "intersect_count"),
     "isolation": ("leaf_search", "leaf_scan_reduce", "leaf_spmm"),
     "readers": ("leaf_search", "leaf_scan_reduce"),
+    "write_side": ("leaf_search", "leaf_scan_reduce"),
+    "durability": ("leaf_search", "leaf_scan_reduce", "leaf_spmm", "intersect_count"),
     "triangles": ("intersect_count",),
     "lm_serve": ("flash_decode",),
     "recsys_serve": ("embedding_bag",),
@@ -1441,7 +1820,9 @@ def run(seed: int, device) -> dict:
     counted("isolation", launches, phase_isolation, r0, ops0, first, device)
     store.end_read(r0)
     counted("readers", launches, phase_readers, store, seed, device)
+    counted("write_side", launches, phase_write_side, store, seed, device)
     del store, r0, ops0, first
+    counted("durability", launches, phase_durability, seed, device)
     tc_store, tc_info = counted("triangles", launches, phase_triangles, TC_SCALE, seed, device)
     triangle_split(tc_store, tc_info, device)
     del tc_store

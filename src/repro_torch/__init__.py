@@ -1,5 +1,5 @@
-"""repro_torch: RapidStore's snapshot read path, LM decode serving and BST
-recsys serving on PyTorch and CUDA.
+"""repro_torch: RapidStore's snapshot read path and write side, LM decode
+serving and BST recsys serving on PyTorch and CUDA.
 
 The port of :mod:`repro` (JAX on a TPU) to an NVIDIA H100.  It imports
 ``torch`` and numpy, never ``jax`` or anything of ``repro``.
@@ -7,7 +7,10 @@ The port of :mod:`repro` (JAX on a TPU) to an NVIDIA H100.  It imports
 Layers
 ------
 - ``repro_torch.core``    — the MVCC store (host engine, copied from the
-  reference), the device tile cache and view assembler, and the analytics.
+  reference: write pipeline, WAL and compactor included), the device tile
+  cache and view assembler, and the analytics.
+- ``repro_torch.checkpoint`` — committed checkpoints (the store's durable
+  base snapshots), in the reference's file format.
 - ``repro_torch.kernels`` — hand-written CUDA kernels (``csrc/*.cu``) for
   leaf search, scan-reduce, SpMM, intersect, embedding_bag and
   flash_decode, each beside its plain PyTorch version;

@@ -1,7 +1,16 @@
 """RapidStore core: subgraph-centric MVCC dynamic graph storage, with the
-view's device materializations as torch tensors on ``store.device``."""
+view's device materializations as torch tensors on ``store.device``.
+
+Storage lifecycle: commits accumulate as copy-on-write versions in per-
+subgraph chains (the hot delta stream, lineage-logged); the
+:class:`Compactor` folds versions retired below the oldest reader into a
+frozen packed base level and trims the lineage; a checkpoint cycle persists
+the base through :mod:`repro_torch.checkpoint.manager` and truncates the
+:class:`WriteAheadLog`, which ``RapidStore.recover`` replays after a crash.
+"""
 
 from .clock import ClockStallError, LogicalClock
+from .compactor import CompactionReport, Compactor
 from .device_cache import DeviceCSRView, DeviceLeafBlockView, DeviceTieredBlocks
 from .leaf_pool import LeafPool, SENTINEL
 from .reader_tracer import ReaderTracer, FREE_TS
@@ -10,11 +19,19 @@ from .store import RapidStore, ReadHandle, StoreStats
 from .subgraph import SubgraphSnapshot, build_subgraph
 from .version_chain import CommitLineage, VersionChain
 from .view_assembler import ViewAssembly
+from .wal import WalRecord, WriteAheadLog
+from .write_pipeline import WritePipeline, WriteTicket
 
 __all__ = [
     "ClockStallError",
     "CommitLineage",
+    "CompactionReport",
+    "Compactor",
     "StoreStats",
+    "WalRecord",
+    "WriteAheadLog",
+    "WritePipeline",
+    "WriteTicket",
     "ViewAssembly",
     "LogicalClock",
     "LeafPool",

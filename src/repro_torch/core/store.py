@@ -15,7 +15,9 @@ snapshot per subgraph at the pinned timestamp, and hands back an immutable
 :class:`~repro_torch.core.snapshot.SnapshotView`.
 
 Writes run single-shot (``insert_edges`` = one route -> prepare -> commit
-transaction, :mod:`repro_torch.core.txn`).
+transaction, :mod:`repro_torch.core.txn`) or, after ``attach_write_pipeline()``,
+through the decoupled group-commit pipeline (``apply_async``/``flush``,
+:mod:`repro_torch.core.write_pipeline`).
 
 Device: the store's views keep their device materializations (leaf tiles,
 COO, CSR) as torch tensors on ``store.device`` — ``"cuda"`` unless the
@@ -168,10 +170,21 @@ class RapidStore:
         self.lineage = CommitLineage()
         self._retired_assembly = None
         self._retire_lock = threading.Lock()
-        # write pipeline, WAL and compactor are not part of this package
-        # yet: single-shot writes, no log, no frozen base level
+        # mesh shard plane: not part of this package yet, so always None
+        # (single-device paths)
+        self.shard_plane = None
+        # durable placement-epoch history [(ts, {sid: dst})] — replayed from
+        # WAL migrate records so a log a sharded store wrote still recovers
+        self._placement_log: List[Tuple[int, Dict[int, int]]] = []
+        # elastic rebalancer: not part of this package yet, so always None
+        self.rebalancer = None
+        # decoupled write pipeline (attach_write_pipeline); None = single-shot
         self.write_pipeline = None
+        # durability + tiering (attach_wal / attach_compactor)
         self.wal = None
+        self.compactor = None
+        # frozen base level: the compactor's fully-materialized packed-stream
+        # bundle (strong ref) — the view assembler's base+delta splice source
         self._base_assembly = None
         self._register_gauges()
 
@@ -232,8 +245,12 @@ class RapidStore:
         store.lineage = CommitLineage()
         store._retired_assembly = None
         store._retire_lock = threading.Lock()
+        store.shard_plane = None
+        store._placement_log = []
+        store.rebalancer = None
         store.write_pipeline = None
         store.wal = None
+        store.compactor = None
         store._base_assembly = None
         store._register_gauges()
 
@@ -300,6 +317,21 @@ class RapidStore:
             ins=np.atleast_2d(np.asarray(ins)) if len(ins) else np.empty((0, 2), np.int64),
             dels=np.atleast_2d(np.asarray(dels)) if len(dels) else np.empty((0, 2), np.int64),
         )
+
+    def apply_async(self, ins: np.ndarray, dels: np.ndarray, vset=None):
+        """Submit a logical write WITHOUT waiting for its commit.
+
+        Returns a :class:`~repro_torch.core.write_pipeline.WriteTicket`; the write
+        becomes visible, atomically with the rest of its group-commit batch,
+        at ``ticket.wait()``'s timestamp.  Attaches a default write pipeline
+        on first use if none is attached.  Validation still runs on this
+        thread, so bad input raises here, not in the worker.
+        """
+        if self.write_pipeline is None:
+            self.attach_write_pipeline()
+        ins = np.atleast_2d(np.asarray(ins)) if len(ins) else np.empty((0, 2), np.int64)
+        dels = np.atleast_2d(np.asarray(dels)) if len(dels) else np.empty((0, 2), np.int64)
+        return self.write_pipeline.submit(ins, dels, vset)
 
     def flush(self) -> None:
         """Barrier: wait until every submitted async write is published.
@@ -425,6 +457,369 @@ class RapidStore:
             yield h.view
         finally:
             self.end_read(h)
+
+    # -- introspection ------------------------------------------------------------
+    def memory_breakdown(self) -> Dict[str, int]:
+        """Per-component byte accounting (exported as ``store_memory_bytes``
+        gauges, one per component; :meth:`memory_bytes` is their sum)."""
+        versions = 0
+        for chain in self.chains:
+            # capture the list reference once, the lock-free convention
+            # resolve() follows: collect()/link() replace the attribute with
+            # a new list, so a captured reference is a stable snapshot
+            snaps = chain._versions
+            for snap in snaps:
+                versions += snap.ci.values.nbytes + snap.ci.offsets.nbytes
+                versions += snap.active.nbytes
+                versions += snap.cache_bytes()
+                versions += snap.device_cache_bytes()
+                for d in snap.dirs.values():
+                    versions += d.leaf_ids.nbytes + d.leaf_min.nbytes
+        retired = self._retired_assembly
+        # the one retained delta-plane bundle (successor splice source)
+        retired_b = (
+            retired.host_bytes() + retired.device_bytes()
+            if retired is not None else 0
+        )
+        base = self._base_assembly
+        # the compactor's frozen base level (strong ref, splice source)
+        base_b = (
+            base.host_bytes() + base.device_bytes()
+            if base is not None and base is not retired else 0
+        )
+        # logical writes queued/prepared in the pipeline but not yet linked
+        wp = self.write_pipeline
+        return {
+            "pool": self.pool.memory_bytes(),
+            "versions": versions,
+            "retired": retired_b,
+            "base": base_b,
+            # commit-lineage log (trimmed by the compactor's fold horizon)
+            "lineage": self.lineage.memory_bytes(),
+            "pipeline": wp.queued_bytes() if wp is not None else 0,
+        }
+
+    def memory_bytes(self) -> int:
+        return sum(self.memory_breakdown().values())
+
+    def reader_horizon_lag(self) -> int:
+        """How far the oldest active reader pins behind ``t_r`` (0: none)."""
+        oldest = self.tracer.min_active_timestamp()
+        if oldest == FREE_TS:
+            return 0
+        return max(0, self.clock.read_timestamp() - oldest)
+
+    def telemetry_report(self) -> str:
+        """Human-readable snapshot of counters, gauges, histograms, spans."""
+        from ..obs import export as _export
+
+        return _export.telemetry_report(self)
+
+    def fill_ratio(self) -> float:
+        return self.pool.fill_ratio()
+
+    def chain_lengths(self) -> np.ndarray:
+        return np.array([len(c) for c in self.chains])
+
+    def check_invariants(self) -> None:
+        self.pool.check_invariants()
+        for chain in self.chains:
+            versions = chain._versions  # stable reference; see memory_bytes
+            for snap in versions:
+                snap.check_invariants()
+
+    # -- decoupled write pipeline -----------------------------------------------
+    def attach_write_pipeline(self, n_shards: int = 4, max_batch: int = 1024):
+        """Attach a :class:`~repro_torch.core.write_pipeline.WritePipeline`.
+
+        Subsequent writes — synchronous ``insert_edges``/``delete_edges``/
+        ``apply`` and async ``apply_async`` — route through per-shard
+        writer queues with group commit and commit pipelining (shard of a
+        subgraph = ``sid % n_shards``).  While attached, do NOT call
+        ``txn.execute_write`` directly: the pipeline replaces the
+        per-subgraph locks with exclusive shard ownership.
+        """
+        from .write_pipeline import WritePipeline
+
+        if self.write_pipeline is not None:
+            raise RuntimeError("a write pipeline is already attached")
+        self.write_pipeline = WritePipeline(
+            self, n_shards=n_shards, max_batch=max_batch
+        )
+        return self.write_pipeline
+
+    def detach_write_pipeline(self) -> None:
+        """Flush, stop the pipeline threads, restore single-shot writes."""
+        wp = self.write_pipeline
+        if wp is None:
+            return
+        try:
+            wp.stop()
+        finally:
+            self.write_pipeline = None
+
+    # -- durability: WAL + compactor + checkpoint + recovery ----------------------
+    def attach_wal(self, path, fsync: bool = True):
+        """Attach a :class:`~repro_torch.core.wal.WriteAheadLog` at ``path``.
+
+        Every subsequent commit — single-shot and group — is appended and
+        fsync'd before it publishes; compactor repacks are logged too, so
+        :meth:`recover` replays layout-faithfully.  Attaching an existing
+        log resumes it (torn tail truncated); a fresh log starts at the
+        clock's current read timestamp.
+        """
+        from .wal import WriteAheadLog
+
+        if self.wal is not None:
+            raise RuntimeError("a WAL is already attached")
+        self.wal = WriteAheadLog(
+            path, start_ts=self.clock.read_timestamp(), fsync=fsync
+        )
+        return self.wal
+
+    def detach_wal(self) -> None:
+        w = self.wal
+        if w is None:
+            return
+        try:
+            w.close()
+        finally:
+            self.wal = None
+
+    def attach_compactor(self, **kw):
+        """Attach a :class:`~repro_torch.core.compactor.Compactor` (see its doc).
+
+        Keyword arguments are forwarded (``min_waste_rows``,
+        ``checkpoint_dir``, ``checkpoint_every``, ``keep_checkpoints``).
+        Drive it with ``compactor.compact_once()`` or ``compactor.start()``.
+        """
+        from .compactor import Compactor
+
+        if self.compactor is not None:
+            raise RuntimeError("a compactor is already attached")
+        self.compactor = Compactor(self, **kw)
+        return self.compactor
+
+    def detach_compactor(self) -> None:
+        c = self.compactor
+        if c is None:
+            return
+        try:
+            c.stop()
+        finally:
+            self.compactor = None
+
+    def checkpoint(self, directory) -> int:
+        """Persist a durable base snapshot; returns its timestamp.
+
+        Captures one consistent view (concurrent writers keep committing)
+        and writes its edge set, vertex flags, free-id queue, and store
+        config through :mod:`repro_torch.checkpoint.manager`'s committed-save
+        protocol (tmp dir + ``_COMPLETE`` marker + atomic rename).  Pair
+        with ``wal.reset(ts)`` — the compactor's checkpoint cycle does —
+        to bound the recovery replay window.
+        """
+        from ..checkpoint import manager as _ckpt
+
+        with self.read_view() as v:
+            ts = v.ts
+            n_vertices = v.n_vertices
+            src, dst = v.to_coo()
+            active = np.concatenate([s.active for s in v.snaps])[:n_vertices]
+        with self._vid_lock:
+            free = np.array(sorted(self._free_vids), np.int64)
+        tree = {
+            "src": np.asarray(src, np.int64),
+            "dst": np.asarray(dst, np.int64),
+            "active": np.asarray(active, bool),
+            "free_vids": free,
+        }
+        extra = {
+            "kind": "rapidstore",
+            "ts": int(ts),
+            "n_vertices": int(n_vertices),
+            "partition_size": int(self.p),
+            "B": int(self.B),
+            "high_threshold": int(self.high_threshold),
+            "leaf_tiers": [int(t) for t in self.leaf_tiers]
+            if self.leaf_tiers is not None
+            else None,
+        }
+        _ckpt.save(directory, step=int(ts), tree=tree, extra=extra)
+        self.stats.add("checkpoints", 1)
+        return int(ts)
+
+    @classmethod
+    def recover(
+        cls,
+        root,
+        wal_filename: str = "wal.log",
+        checkpoint_subdir: str = "checkpoints",
+        attach: bool = True,
+        fsync: bool = True,
+        device=None,
+        **store_kw,
+    ) -> "RapidStore":
+        """Rebuild a store from ``root`` after a crash: checkpoint + WAL.
+
+        ``root`` is the durability directory holding ``wal.log`` and
+        ``checkpoints/`` (the layout :meth:`attach_wal` +
+        ``attach_compactor(checkpoint_dir=...)`` produce).  The newest
+        committed checkpoint seeds the store (its saved config overrides
+        ``store_kw``); the WAL suffix is replayed in timestamp order at the
+        ORIGINAL commit timestamps — including repack records, so the
+        clustered-index/C-ART layout history is reproduced and recovered
+        ``SnapshotView`` materializations are bitwise-identical to a serial
+        re-application of the same ops.  A torn WAL tail (crash mid-append)
+        is dropped; everything durable before it replays.  With no
+        checkpoint, ``store_kw`` must supply ``n_vertices`` and layout
+        parameters matching the original store.
+
+        ``attach=True`` re-attaches the WAL (truncating the torn tail on
+        disk) so the recovered store continues durable service.  ``device``
+        is the constructor's: the recovered views live on the card unless
+        the caller names another device, and without a card the default
+        raises.
+        """
+        import os
+
+        from .wal import WriteAheadLog
+
+        store_kw = dict(store_kw, device=_resolve_device(device))
+        root = str(root)
+        wal_path = os.path.join(root, wal_filename)
+        ckpt_dir = os.path.join(root, checkpoint_subdir)
+
+        from ..checkpoint import manager as _ckpt
+
+        step = _ckpt.latest_step(ckpt_dir)
+        if step is not None:
+            arrays, meta = _ckpt.restore_raw(ckpt_dir, step=step)
+            extra = meta["extra"]
+            store_kw = dict(store_kw)
+            store_kw.pop("n_vertices", None)
+            for key in ("partition_size", "B", "high_threshold"):
+                store_kw[key] = extra[key]
+            # tier config is layout-determining, so the checkpoint's record
+            # beats REPRO_LEAF_TIERS: a single-B checkpoint pins a single-B
+            # pool (passing (B,) suppresses the env fallback)
+            lt = extra.get("leaf_tiers")
+            store_kw["leaf_tiers"] = tuple(lt) if lt else (extra["B"],)
+            edges = np.stack([arrays["src"], arrays["dst"]], axis=1) \
+                if len(arrays["src"]) else np.empty((0, 2), np.int64)
+            store = cls.from_edges(extra["n_vertices"], edges, **store_kw)
+            # vertex flags: heads are version-0 snapshots nobody has read
+            # yet, so direct mutation is safe here (and only here)
+            for vid in np.nonzero(~arrays["active"])[0]:
+                store.chains[int(vid) // store.p].head.active[
+                    int(vid) % store.p
+                ] = False
+            store._free_vids = [int(v) for v in arrays["free_vids"]]
+            store.clock.restore(int(extra["ts"]))
+        else:
+            if "n_vertices" not in store_kw:
+                raise ValueError(
+                    "recover() without a checkpoint needs n_vertices (and "
+                    "matching layout parameters) in store_kw"
+                )
+            store_kw = dict(store_kw)
+            store = cls(store_kw.pop("n_vertices"), **store_kw)
+
+        replayed = 0
+        if os.path.exists(wal_path):
+            _, records, clean = WriteAheadLog.replay(wal_path)
+            floor = store.clock.read_timestamp()
+            for rec in records:
+                if rec.ts <= floor:
+                    continue  # already covered by the checkpoint
+                store._replay_record(rec)
+                replayed += 1
+            if not clean:
+                store.stats.add("wal_torn_tail", 1)
+        store.stats.add("wal_replayed", replayed)
+        # replay linked every record as its own version with no readers
+        # active — collapse the chains down to their heads
+        final_ts = store.clock.read_timestamp()
+        for chain in store.chains:
+            chain.collect([final_ts])
+        if attach:
+            store.attach_wal(wal_path, fsync=fsync)
+        return store
+
+    def _ensure_vertices(self, n: int) -> None:
+        """Grow the id space to at least ``n`` vertices (WAL replay path).
+
+        Mirrors :meth:`insert_vertex`'s growth: appends empty version-0
+        chains (and locks) for any new subgraphs.
+        """
+        with self._vid_lock:
+            if n <= self.n_vertices:
+                return
+            self.n_vertices = int(n)
+            needed = -(-self.n_vertices // self.p)
+            while self.n_subgraphs < needed:
+                sid = self.n_subgraphs
+                empty = build_subgraph(
+                    sid, self.p, self.pool, np.empty(0, np.int64),
+                    np.empty(0, np.int32), high_threshold=self.high_threshold,
+                )
+                self.chains.append(VersionChain(sid, empty))
+                self.locks.append(threading.Lock())
+                self.n_subgraphs += 1
+
+    def _replay_record(self, rec) -> None:
+        """Apply one WAL record at its original commit timestamp.
+
+        Replay is single-threaded: versions are linked directly (prepare +
+        link) and the clock is restored past each timestamp instead of
+        running the publish protocol, so timestamp gaps (abandoned or
+        never-synced commits) are stepped over exactly as the live clock
+        stepped over them.
+        """
+        from .wal import KIND_MIGRATE, KIND_REPACK
+        from .subgraph import build_subgraph as _build
+
+        self._ensure_vertices(rec.n_vertices)
+        if rec.kind == KIND_MIGRATE:
+            # placement flip: a no-write commit — restore the epoch into the
+            # durable log (and the plane, if one is already attached) at its
+            # original timestamp so recovered views resolve the same
+            # placement history the crashed store did
+            moves = dict(rec.moves)
+            self._placement_log.append((rec.ts, moves))
+            self.lineage.record_placement(rec.ts, moves)
+            if self.shard_plane is not None:
+                self.shard_plane.record_epoch(rec.ts, moves)
+            self.clock.restore(rec.ts)
+            return
+        if rec.kind == KIND_REPACK:
+            for sid in rec.sids:
+                head = self.chains[sid].head
+                src, dst = head.to_coo_global()
+                # tier hints mirror the live compactor's: hysteresis against
+                # the pre-repack tier, which matches the original run's head
+                # by induction over the replayed record sequence
+                snap = _build(
+                    sid, self.p, self.pool, src - sid * self.p, dst,
+                    high_threshold=self.high_threshold,
+                    tier_hints={int(lu): d.tier for lu, d in head.dirs.items()},
+                )
+                snap.active = head.active.copy()
+                _txn.link_at(self, rec.ts, {sid: snap}, n_writes=0)
+        else:
+            rw = _txn.route(self, rec.ins, rec.dels, rec.vset)
+            if rw is not None:
+                new_snaps = _txn.prepare(self, rw)
+                if new_snaps:
+                    _txn.link_at(self, rec.ts, new_snaps, n_writes=1)
+            if rec.vset:
+                with self._vid_lock:
+                    for vid, flag in sorted(rec.vset.items()):
+                        if flag and vid in self._free_vids:
+                            self._free_vids.remove(vid)
+                        elif not flag and vid not in self._free_vids:
+                            self._free_vids.append(vid)
+        self.clock.restore(rec.ts)
 
     # -- introspection ------------------------------------------------------------
     def memory_breakdown(self) -> Dict[str, int]:

@@ -29,65 +29,34 @@ from repro.kernels.spmm import leaf_spmm_view as r_leaf_spmm
 from repro.kernels.spmm import spmm_view as r_spmm
 
 import repro_torch.core as tc
-import repro_torch.core.analytics as ta
 from repro_torch.core import view_assembler as t_assembler
 from repro_torch.kernels.intersect import intersect_tiles_view as t_intersect
 from repro_torch.kernels.intersect import sum_intersect_tiles_view as t_sum_intersect
 from repro_torch.kernels.leaf_search import edge_search_view as t_edge_search
-from repro_torch.kernels.spmm import leaf_scan_reduce_view as t_scan
-from repro_torch.kernels.spmm import leaf_spmm_view as t_leaf_spmm
-from repro_torch.kernels.spmm import spmm_view as t_spmm
+
+from _torch_entries import PORT_ENTRIES
 
 N = 96
 STORE_KW = dict(partition_size=16, B=16, high_threshold=8)
 CONFIGS = {"single": None, "tiered": (8, 16)}
-# name -> (repro call, port call, tolerance or None for exact)
-ENTRIES = {
-    "edge_search_view": (
+# the reference's side of each entry point; the port's is _torch_entries'
+_REF_CALLS = {
+    "edge_search_view":
         lambda v, c: r_edge_search(v, c["queries"][:, 0], c["queries"][:, 1]),
-        lambda v, c: t_edge_search(v, c["queries"][:, 0], c["queries"][:, 1]),
-        None),
-    "intersect_tiles_view": (
-        lambda v, c: r_intersect(v, c["ia"], c["ib"]),
-        lambda v, c: t_intersect(v, c["ia"], c["ib"]),
-        None),
-    "sum_intersect_tiles_view": (
+    "intersect_tiles_view": lambda v, c: r_intersect(v, c["ia"], c["ib"]),
+    "sum_intersect_tiles_view":
         lambda v, c: r_sum_intersect(v, c["ia"], c["ib"], batch=16),
-        lambda v, c: t_sum_intersect(v, c["ia"], c["ib"], batch=16),
-        None),
-    "leaf_scan_reduce_view": (
-        lambda v, c: r_scan(v, jnp.asarray(c["x"])),
-        lambda v, c: t_scan(v, torch.from_numpy(c["x"])),
-        1e-5),
-    "leaf_spmm_view": (
-        lambda v, c: r_leaf_spmm(v, jnp.asarray(c["H"])),
-        lambda v, c: t_leaf_spmm(v, torch.from_numpy(c["H"])),
-        1e-4),
-    "spmm_view": (
-        lambda v, c: r_spmm(v, jnp.asarray(c["H"])),
-        lambda v, c: t_spmm(v, torch.from_numpy(c["H"])),
-        1e-4),
-    "pagerank_view": (
-        lambda v, c: ra.pagerank_view(v),
-        lambda v, c: ta.pagerank_view(v),
-        1e-5),
-    "bfs_view": (
-        lambda v, c: ra.bfs_view(v, 0),
-        lambda v, c: ta.bfs_view(v, 0),
-        None),
-    "sssp_view": (
-        lambda v, c: ra.sssp_view(v, c["w"], 0),
-        lambda v, c: ta.sssp_view(v, c["w"], 0),
-        None),
-    "wcc_view": (
-        lambda v, c: ra.wcc_view(v),
-        lambda v, c: ta.wcc_view(v),
-        None),
-    "triangle_count_view": (
-        lambda v, c: ra.triangle_count_view(v),
-        lambda v, c: ta.triangle_count_view(v),
-        None),
+    "leaf_scan_reduce_view": lambda v, c: r_scan(v, jnp.asarray(c["x"])),
+    "leaf_spmm_view": lambda v, c: r_leaf_spmm(v, jnp.asarray(c["H"])),
+    "spmm_view": lambda v, c: r_spmm(v, jnp.asarray(c["H"])),
+    "pagerank_view": lambda v, c: ra.pagerank_view(v),
+    "bfs_view": lambda v, c: ra.bfs_view(v, 0),
+    "sssp_view": lambda v, c: ra.sssp_view(v, c["w"], 0),
+    "wcc_view": lambda v, c: ra.wcc_view(v),
+    "triangle_count_view": lambda v, c: ra.triangle_count_view(v),
 }
+# name -> (repro call, port call, tolerance or None for exact)
+ENTRIES = {name: (_REF_CALLS[name], *PORT_ENTRIES[name]) for name in _REF_CALLS}
 assert set(ENTRIES) == set(ENTRY_CASES)
 
 
