@@ -41,6 +41,28 @@ script exits non-zero without the last line):
 4. isolation the pinned R0 answers bitwise as before the writes
 5. readers   two reader threads repeat queries on their own pinned views
              while the main thread commits
+5s. shard_plane  on the main store: PageRank (10 iterations), BFS, SSSP,
+             WCC and SpMM (d = 128) on a pinned view through the
+             single-device route; a 4-shard plane (modulo, directed) over
+             the visible cards (all four on one card when there is one):
+             its cold sharded COO and tile builds, each shard's live
+             edges, tiles, caps, uploads and bytes; the five queries
+             through it on the same snapshot (BFS, SSSP, WCC bitwise,
+             PageRank within 1e-5 and rtol 1e-3, atol 1e-9 — a plane that
+             drops its lightest shard's partials must fail that — SpMM
+             1e-4; warm medians of 3 beside the single route's;
+             ``leaf_spmm`` once per shard, and each shard's launch at the
+             plane's shapes held against the plain version, every tile,
+             1e-4); 20
+             transactions on shard 1's subgraphs (the other shards upload
+             nothing and keep their bundles by identity); a migration of
+             the 4 heaviest subgraphs to the least-loaded shard with a
+             reader pinned before the flip (its bundles untouched,
+             BFS/SSSP/WCC bitwise) and a view after it; the modulo and
+             degree-balanced loads; device bytes before the attach, at the
+             peak and after the detach.  After phase 6 its store takes a
+             ``symmetric=True`` plane: pull PageRank against the single
+             route as above
 5a. write_side  on the main store: a write pipeline (4 shards, batches up
              to 1024), 4 writer threads each submitting 50 transactions with
              ``apply_async`` while two reader threads repeat edge search and
@@ -96,8 +118,8 @@ script exits non-zero without the last line):
              (1,000,000 candidates), each against the plain route
 10. the ``kernels`` line, then the ``ok`` line.
 
-The launch counters are set to 0 just before each of phases 3-6, 5a, 5b,
-8 and 9 and read just after it; every kernel a phase calls must have
+The launch counters are set to 0 just before each of phases 3-6, 5s, 5a,
+5b, 8 and 9 and read just after it; every kernel a phase calls must have
 launched in it.  The ``kernels`` line's ``launches`` is the count on each
 kernel's own path (phase 3 for the graph kernels, 8 for flash_decode, 9 for
 embedding_bag), and ``launches_by_path`` holds every phase's.  The
@@ -128,6 +150,7 @@ import subprocess
 import sys
 import threading
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -138,6 +161,7 @@ SCALE = 22  # R-MAT scale of the main store (below 21 the writes cannot splice)
 TC_SCALE = 18  # R-MAT scale of the undirected triangle-count store
 D_FEATURES = 128  # SpMM width: a common GNN hidden width
 N_WRITES, N_INS, N_DELS = 20, 256, 64
+PLANE_SHARDS, PLANE_MOVES = 4, 4  # shard plane: 4 shards (on one card there); moves
 WS_WRITERS, WS_TXNS, WS_MORE = 4, 50, 20  # write_side: 4 writers x 50 txns, 20 after the fold
 DUR_SCALE = 18  # durability: recovery rebuilds with from_edges (246.7 s at 22)
 DUR_TIERS = (64, 512)  # the paper's skew tiers (section 6.2)
@@ -759,7 +783,7 @@ def check_cpu_route(view, ops, res) -> dict:
     want = {
         "bfs_view": A.bfs_coo(src, dst, n, 0),
         "sssp_view": A.sssp_coo(src, dst, ops["w"].cpu(), n, 0),
-        "wcc_view": A.wcc_coo(torch.cat([src, dst]), torch.cat([dst, src]), n),
+        "wcc_view": A.wcc_coo(src, dst, n),
     }
     for name, w in want.items():
         if not torch.equal(res[name].cpu(), w):
@@ -935,6 +959,350 @@ def phase_readers(store, seed, device, repeats: int = 4, commits: int = 10) -> N
     if errors:
         raise errors[0]
     emit("readers", readers=stats, commits=commits, commit_s=commit_s)
+
+
+# ---------------------------------------------------------------------------
+# Phase 5s: the shard plane
+# ---------------------------------------------------------------------------
+PLANE_QUERIES = ("pagerank_view", "bfs_view", "sssp_view", "wcc_view", "spmm_view")
+PLANE_TOLERANCE = {"pagerank_view": 1e-5, "spmm_view": 1e-4}  # atomics on the card
+# PageRank values average 1/n (2.4e-7 at scale 22), far below 1e-5: also
+# held at the CPU route's relative limit (phase 3), scaled to the values
+PR_RTOL, PR_ATOL = 1e-3, 1e-9
+
+
+@contextmanager
+def single_route():
+    """The ``*_view`` entry points on the single-device route while inside
+    (``REPRO_DISABLE_SHARD_PLANE``, the plane's own switch)."""
+    import os
+
+    os.environ["REPRO_DISABLE_SHARD_PLANE"] = "1"
+    try:
+        yield
+    finally:
+        del os.environ["REPRO_DISABLE_SHARD_PLANE"]
+
+
+def plane_queries(view, w, h, device, reps: int = 1) -> tuple:
+    """PageRank (10 iterations), BFS(0), SSSP(w, 0), WCC and SpMM on
+    ``view`` through its store's current route: (answers, median warm
+    seconds of ``reps`` calls after the first, or the first call's seconds
+    when ``reps`` is 1)."""
+    import numpy as np
+
+    from repro_torch.core import analytics as A
+    from repro_torch.kernels.spmm import spmm_view
+
+    calls = {"pagerank_view": lambda: A.pagerank_view(view),
+             "bfs_view": lambda: A.bfs_view(view, 0),
+             "sssp_view": lambda: A.sssp_view(view, w, 0),
+             "wcc_view": lambda: A.wcc_view(view),
+             "spmm_view": lambda: spmm_view(view, h)}
+    res, secs = {}, {}
+    for name, fn in calls.items():
+        res[name], t = wall(fn, device)
+        if reps > 1:
+            t = float(np.median([wall(fn, device)[1] for _ in range(reps)]))
+        secs[name] = t
+    return res, secs
+
+
+def hold_pagerank(got, want, what: str) -> dict:
+    """PageRank within 1e-5 and within rtol ``PR_RTOL``, atol ``PR_ATOL``:
+    the largest absolute and relative differences."""
+    import torch
+
+    for tol in ({"rtol": 1e-5, "atol": 1e-5}, {"rtol": PR_RTOL, "atol": PR_ATOL}):
+        torch.testing.assert_close(got, want, **tol,
+                                   msg=lambda m: f"{what}: pagerank_view: {m}")
+    diff = (got.double() - want.double()).abs()
+    return {"max_abs_err": float(diff.max()),
+            "max_rel_err": float((diff / want.double().abs()).max())}
+
+
+def hold_plane(want: dict, got: dict, what: str) -> dict:
+    """BFS, SSSP and WCC bitwise, PageRank as ``hold_pagerank`` and SpMM
+    within 1e-4 (rtol = atol); returns the largest absolute difference of
+    the two float answers (and PageRank's largest relative one)."""
+    import torch
+
+    errs = {}
+    for name in PLANE_QUERIES:
+        w, g = want[name], got[name]
+        if name == "pagerank_view":
+            pr = hold_pagerank(g, w, what)
+            errs[name], errs["pagerank_rel"] = pr["max_abs_err"], pr["max_rel_err"]
+            continue
+        tol = PLANE_TOLERANCE.get(name)
+        if tol is None:
+            if not torch.equal(w, g):
+                raise AssertionError(f"{what}: {name} differs bitwise")
+            continue
+        torch.testing.assert_close(g, w, rtol=tol, atol=tol,
+                                   msg=lambda m, n=name: f"{what}: {n}: {m}")
+        errs[name] = float((g.double() - w.double()).abs().max()) if w.numel() else 0.0
+    return errs
+
+
+def dropped_partial_rejected(plane, view, want, what: str) -> int:
+    """The PageRank check against a plane whose merges drop the lightest
+    shard's partials (its degrees and rank contributions): raises unless
+    ``hold_pagerank`` rejects the answer; returns the shard dropped."""
+    import numpy as np
+
+    from repro_torch.core import analytics as A
+    from repro_torch.core import distributed
+
+    loads = [s.n_live for s in plane.sharded_coo(view).shards]
+    k = int(np.argmin(loads))
+    merge = distributed.merge
+    distributed.merge = lambda parts, op: merge([p for i, p in enumerate(parts) if i != k], op)
+    try:
+        bad = A.pagerank_view(view)
+    finally:
+        distributed.merge = merge
+    try:
+        hold_pagerank(bad, want, what)
+    except AssertionError:
+        return k
+    raise AssertionError(f"{what}: the PageRank check passes a plane that lost shard {k}")
+
+
+def hold_shard_spmm(plane, view, h) -> list:
+    """``leaf_spmm`` on each shard's live tiles (the plane's own shapes and
+    length columns) against its plain version, every tile, in
+    ``SPMM_PLAIN_ROWS`` chunks at 1e-4 as in phase 2; per shard, the tiles
+    and the largest absolute difference.  These comparison launches are
+    taken off the launch count again."""
+    import torch
+
+    from repro_torch.kernels.spmm import leaf_spmm
+    from repro_torch.kernels.spmm.ref import leaf_spmm_ref
+
+    launches = leaf_spmm.launches
+    out = []
+    for k, shard in enumerate(plane.sharded_blocks(view).shards):
+        _, rows, length = shard.live()
+        hk = h.to(shard.device)
+        y = leaf_spmm(rows, hk, length)
+        err = 0.0
+        for c0 in range(0, shard.n_live, SPMM_PLAIN_ROWS):
+            c1 = min(shard.n_live, c0 + SPMM_PLAIN_ROWS)
+            yr = leaf_spmm_ref(rows[c0:c1], hk, length[c0:c1])
+            torch.testing.assert_close(y[c0:c1], yr, rtol=1e-4, atol=1e-4,
+                                       msg=lambda m, k=k: f"leaf_spmm on shard {k}: {m}")
+            err = max(err, max_abs_err(y[c0:c1], yr))
+            del yr
+        del y
+        out.append({"shard": k, "tiles": shard.n_live, "width": int(rows.shape[1]),
+                    "max_abs_err": err})
+    leaf_spmm.launches = launches
+    return out
+
+
+def shard_layout(plane, view) -> list:
+    """Per shard: device, live edges, live tiles, the shared caps, uploads
+    and bytes uploaded so far."""
+    coo, blocks = plane.sharded_coo(view), plane.sharded_blocks(view)
+    return [{"device": str(plane.devices[k]), "live_edges": coo.shards[k].n_live,
+             "live_tiles": blocks.shards[k].n_live, "coo_cap": coo.cap,
+             "tile_cap": blocks.cap, "uploads": plane.stats.uploads[k],
+             "bytes_uploaded": plane.stats.bytes_uploaded[k]}
+            for k in range(plane.n_shards)]
+
+
+def shard_writes(view, placement, shard: int, rng, n_txn: int):
+    """``n_txn`` (ins, dels) batches whose sources all lie in subgraphs
+    placed on ``shard``: random inserts and deletes of existing edges."""
+    import numpy as np
+
+    src, dst = view.to_coo()
+    n, p = view.n_vertices, view.p
+    sids = np.nonzero(np.asarray(placement) == shard)[0]
+    mine = np.nonzero(np.isin(src // p, sids))[0]
+    pick = rng.choice(mine, n_txn * N_DELS, replace=False)
+    batches = []
+    for t in range(n_txn):
+        u = rng.choice(sids, N_INS) * p + rng.integers(0, p, N_INS)
+        ins = np.stack([u, rng.integers(0, n, N_INS)], 1)
+        ins = ins[(ins[:, 0] != ins[:, 1]) & (ins[:, 0] < n)]
+        sel = pick[t * N_DELS:(t + 1) * N_DELS]
+        batches.append((ins, np.stack([src[sel], dst[sel].astype(np.int64)], 1)))
+    return batches
+
+
+def phase_shard_plane(store, seed, device) -> int:
+    """Phase 5s on the main store: the five collectives through a
+    ``PLANE_SHARDS``-shard plane (modulo, directed) against the
+    single-device route on the same view, a write on one shard, a
+    migration under a pinned reader, the placements' loads, and the
+    device bytes before, at the peak and after the detach.  Returns the
+    allocator's peak before the phase (the phase resets it)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.shard_plane import degree_balanced_placement, modulo_placement
+    from repro_torch.kernels.spmm import leaf_spmm
+
+    cuda = device.type == "cuda"
+    prior_peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    mem_before = torch.cuda.memory_allocated(device) if cuda else 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    g = torch.Generator(device=device).manual_seed(seed + 30)
+    n = store.n_vertices
+    h = torch.randn((n, D_FEATURES), generator=g, device=device)
+
+    # 1. the single-device route on a pinned view, before the attach
+    r1 = store.begin_read()
+    w = torch.rand(r1.view.n_edges, generator=g, device=device) + 0.1
+    single, single_s = plane_queries(r1.view, w, h, device, reps=3)
+
+    # 2. the plane, and the same timestamp through it
+    plane = store.attach_shard_plane(n_devices=PLANE_SHARDS, symmetric=False)
+    r2 = store.begin_read()
+    if r2.ts != r1.ts or r2.view._plane is not plane:
+        raise AssertionError("the view after the attach is not the same snapshot")
+    _, coo_s = wall(lambda: plane.sharded_coo(r2.view), device)
+    _, tiles_s = wall(lambda: plane.sharded_blocks(r2.view), device)
+    layout = shard_layout(plane, r2.view)
+    emit("shard_plane_attach", shards=PLANE_SHARDS, policy="modulo", symmetric=False,
+         cold_coo_s=coo_s, cold_tiles_s=tiles_s, layout=layout)
+
+    # 3. the same five queries through the plane on the same view
+    n0 = leaf_spmm.launches
+    sharded, sharded_s = plane_queries(r2.view, w, h, device, reps=3)
+    spmm_launches = (leaf_spmm.launches - n0) / (1 + 3)  # the first call + 3 timed
+    if "leaf_spmm" in PATH_KERNELS["shard_plane"] and spmm_launches < PLANE_SHARDS:
+        raise AssertionError(f"leaf_spmm launched {spmm_launches} times per sharded SpMM")
+    errs = hold_plane(single, sharded, "plane vs single route")
+    dropped = dropped_partial_rejected(plane, r2.view, single["pagerank_view"],
+                                       "a plane without a shard's partials")
+    spmm_shards = hold_shard_spmm(plane, r2.view, h)
+    # 4. 20 transactions on shard 1's subgraphs: the other shards upload
+    # nothing and keep their bundles (R2 retires last, so it is the splice
+    # source of the next view)
+    placement = plane.placement_for(store.n_subgraphs)
+    batches = shard_writes(r2.view, placement, 1, np.random.default_rng(seed + 31), N_WRITES)
+    store.end_read(r1)
+    pred_coo = r2.view.assembly.sharded.coo
+    store.end_read(r2)
+    del single, sharded, r1, r2  # ended views' bundles are garbage
+    for ins, dels in batches:
+        store.apply(ins, dels)
+    u0, b0 = list(plane.stats.uploads), list(plane.stats.bytes_uploaded)
+    r3 = store.begin_read()
+    w3 = torch.rand(r3.view.n_edges, generator=g, device=device) + 0.1
+    got3, write_s = plane_queries(r3.view, w3, h, device)
+    up = [a - b for a, b in zip(plane.stats.uploads, u0)]
+    succ = r3.view.assembly.sharded.coo
+    if any(up[k] for k in range(PLANE_SHARDS) if k != 1) or up[1] <= 0:
+        raise AssertionError(f"a write on shard 1 uploaded {up} segments per shard")
+    reused = [k for k in range(PLANE_SHARDS) if succ.shards[k] is pred_coo.shards[k]]
+    if reused != [k for k in range(PLANE_SHARDS) if k != 1]:
+        raise AssertionError(f"clean COO shards reused by identity: {reused}")
+    with single_route():
+        want3, _ = plane_queries(r3.view, w3, h, device)
+    errs3 = hold_plane(want3, got3, "after the shard-1 write")
+    store.end_read(r3)
+    del got3, want3, pred_coo, succ, r3
+    emit("shard_plane_write", txns=N_WRITES, shard=1, uploads_delta=up,
+         bytes_delta=[a - b for a, b in zip(plane.stats.bytes_uploaded, b0)],
+         clean_shards_reused=reused, splices=plane.stats.splices,
+         query_s=write_s, max_abs_err=errs3)
+
+    # 5. a migration of the 4 heaviest subgraphs onto the least-loaded
+    # shard while a reader stays pinned before the flip
+    rb = store.attach_rebalancer()
+    sig = rb.shard_signals()
+    dst = min(sig, key=lambda k: sig[k]["load"])
+    heads = np.array([c.head.n_edges for c in store.chains])
+    cur = plane.placement_for(store.n_subgraphs)
+    heavy = [int(s) for s in np.argsort(-heads, kind="stable") if int(cur[s]) != dst]
+    moves = {sid: dst for sid in heavy[:PLANE_MOVES]}
+    r4 = store.begin_read()
+    w4 = torch.rand(r4.view.n_edges, generator=g, device=device) + 0.1
+    pinned, _ = plane_queries(r4.view, w4, h, device)
+    bundles = (r4.view.assembly.sharded.coo, r4.view.assembly.sharded.blocks)
+    staged0 = store.stats.get("reshard_bytes_staged", 0)
+    epoch, move_s = wall(lambda: rb.execute(rb.plan_moves(moves)), device)
+    if epoch is None:
+        raise AssertionError("the migration aborted")
+    again, _ = plane_queries(r4.view, w4, h, device)
+    if (r4.view.assembly.sharded.coo, r4.view.assembly.sharded.blocks) != bundles:
+        raise AssertionError("the pinned view's bundles changed under the migration")
+    pinned_errs = hold_plane(pinned, again, "pinned reader across the migration")
+    pinned_bitwise = [k for k in PLANE_QUERIES if torch.equal(pinned[k], again[k])]
+    store.end_read(r4)
+    del pinned, again, bundles, r4
+    r5 = store.begin_read()
+    now = plane.placement_at(r5.ts, store.n_subgraphs)
+    if r5.ts < epoch or any(int(now[s]) != d for s, d in moves.items()):
+        raise AssertionError("the view after the flip does not resolve the new placement")
+    got5, after_s = plane_queries(r5.view, w4, h, device)
+    with single_route():
+        want5, _ = plane_queries(r5.view, w4, h, device)
+    errs5 = hold_plane(want5, got5, "after the migration")
+    store.end_read(r5)
+    del got5, want5, r5
+    store.detach_rebalancer()
+    emit("shard_plane_migration", moves={str(k): v for k, v in moves.items()},
+         epoch=epoch, send_to_free_s=move_s,
+         bytes_staged=store.stats["reshard_bytes_staged"] - staged0,
+         pinned_bitwise=pinned_bitwise, pinned_max_abs_err=pinned_errs,
+         after_query_s=after_s, max_abs_err=errs5,
+         migration_rebuilds=plane.stats.migration_rebuilds,
+         loads_after=[plane.shard_load(k) for k in range(PLANE_SHARDS)])
+
+    # 6. the placements' loads at the current heads
+    loads = {}
+    for name, policy in (("modulo", modulo_placement),
+                         ("degree_balanced", degree_balanced_placement)):
+        ld = np.bincount(policy(heads, PLANE_SHARDS), weights=heads, minlength=PLANE_SHARDS)
+        loads[name] = {"loads": [int(x) for x in ld], "max_over_min": float(ld.max() / ld.min())}
+
+    # 8. detach
+    stats = {k: v for k, v in vars(plane.stats).items()}
+    peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    store.detach_shard_plane()
+    del plane, h, w, w3, w4
+    free_device(device)
+    mem_after = torch.cuda.memory_allocated(device) if cuda else 0
+    emit("shard_plane", shards=PLANE_SHARDS, single_route_s=single_s,
+         plane_s=sharded_s, max_abs_err=errs, leaf_spmm_per_sharded_spmm=spmm_launches,
+         leaf_spmm_vs_plain=spmm_shards, pagerank_check_rejects_dropped_shard=dropped,
+         placement_loads=loads, stats=stats,
+         device_bytes={"before_attach": mem_before, "peak": peak, "after_detach": mem_after})
+    return prior_peak
+
+
+def phase_shard_symmetric(store, device) -> None:
+    """Phase 6's undirected store under a ``symmetric=True`` plane: pull
+    PageRank against the single-device route on the same view."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import analytics as A
+
+    def warm(fn):
+        """(first answer, median seconds of 3 warm calls)."""
+        out = fn()
+        return out, float(np.median([wall(fn, device)[1] for _ in range(3)]))
+
+    with store.read_view() as v:
+        want, single_s = warm(lambda: A.pagerank_view(v))
+    plane = store.attach_shard_plane(n_devices=PLANE_SHARDS, symmetric=True)
+    with store.read_view() as v:
+        _, cold_s = wall(lambda: plane.sharded_coo(v), device)
+        got, plane_s = warm(lambda: A.pagerank_view(v))
+        err = hold_pagerank(got, want, "symmetric plane vs single route")
+        dropped = dropped_partial_rejected(plane, v, want, "a symmetric plane without a shard")
+    store.detach_shard_plane()
+    emit("shard_plane_symmetric", shards=PLANE_SHARDS, cold_coo_s=cold_s,
+         pagerank_single_s=single_s, pagerank_plane_s=plane_s,
+         pagerank_max_abs_err=err["max_abs_err"], pagerank_max_rel_err=err["max_rel_err"],
+         pagerank_check_rejects_dropped_shard=dropped, bitwise=bool(torch.equal(got, want)))
 
 
 def phase_write_side(store, seed, device) -> None:
@@ -1783,6 +2151,7 @@ PATH_KERNELS = {
     "main": ("leaf_search", "leaf_scan_reduce", "leaf_spmm", "intersect_count"),
     "isolation": ("leaf_search", "leaf_scan_reduce", "leaf_spmm"),
     "readers": ("leaf_search", "leaf_scan_reduce"),
+    "shard_plane": ("leaf_spmm",),
     "write_side": ("leaf_search", "leaf_scan_reduce"),
     "durability": ("leaf_search", "leaf_scan_reduce", "leaf_spmm", "intersect_count"),
     "triangles": ("intersect_count",),
@@ -1820,15 +2189,17 @@ def run(seed: int, device) -> dict:
     counted("isolation", launches, phase_isolation, r0, ops0, first, device)
     store.end_read(r0)
     counted("readers", launches, phase_readers, store, seed, device)
+    prior_peak = counted("shard_plane", launches, phase_shard_plane, store, seed, device)
     counted("write_side", launches, phase_write_side, store, seed, device)
     del store, r0, ops0, first
     counted("durability", launches, phase_durability, seed, device)
     tc_store, tc_info = counted("triangles", launches, phase_triangles, TC_SCALE, seed, device)
     triangle_split(tc_store, tc_info, device)
+    phase_shard_symmetric(tc_store, device)
     del tc_store
     if device.type == "cuda":
-        emit("memory", phases="1-6",
-             peak_allocated_bytes=torch.cuda.max_memory_allocated(device))
+        emit("memory", phases="1-6", peak_allocated_bytes=max(
+            prior_peak, torch.cuda.max_memory_allocated(device)))
     kernels.update(run_models(seed, device, launches))
     for name, rec in kernels.items():
         source, replaces = KERNELS[name]

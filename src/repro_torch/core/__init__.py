@@ -7,6 +7,9 @@ subgraph chains (the hot delta stream, lineage-logged); the
 frozen packed base level and trims the lineage; a checkpoint cycle persists
 the base through :mod:`repro_torch.checkpoint.manager` and truncates the
 :class:`WriteAheadLog`, which ``RapidStore.recover`` replays after a crash.
+A :class:`ShardPlane` lays each view's tiles over shards (several may share
+one card) and answers the collective analytics; a :class:`Rebalancer`
+migrates subgraphs between shards as WAL-logged placement epochs.
 """
 
 from .clock import ClockStallError, LogicalClock
@@ -14,6 +17,8 @@ from .compactor import CompactionReport, Compactor
 from .device_cache import DeviceCSRView, DeviceLeafBlockView, DeviceTieredBlocks
 from .leaf_pool import LeafPool, SENTINEL
 from .reader_tracer import ReaderTracer, FREE_TS
+from .reshard import Rebalancer
+from .shard_plane import ShardPlane, ShardedViewAssembly
 from .snapshot import CompactLeafStream, CSRView, LeafBlockView, SnapshotView
 from .store import RapidStore, ReadHandle, StoreStats
 from .subgraph import SubgraphSnapshot, build_subgraph
@@ -37,6 +42,9 @@ __all__ = [
     "LeafPool",
     "SENTINEL",
     "ReaderTracer",
+    "Rebalancer",
+    "ShardPlane",
+    "ShardedViewAssembly",
     "FREE_TS",
     "CompactLeafStream",
     "CSRView",

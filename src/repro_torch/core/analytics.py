@@ -18,8 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-_I32_MIN = -(2**31)
-_I32_MAX = 2**31 - 1
+from .distributed import make_bfs, make_pagerank, make_sssp, make_wcc
+from .shard_plane import active_plane
 
 
 # ---------------------------------------------------------------------------
@@ -35,87 +35,47 @@ def _pr_step(agg: torch.Tensor, dangling: torch.Tensor, n: int, damping: float) 
 def pagerank_coo(
     src: torch.Tensor, dst: torch.Tensor, n: int, iters: int = 10, damping: float = 0.85
 ) -> torch.Tensor:
-    """On CUDA the per-iteration ``index_add_`` adds with atomics, so the f32
+    """Push-form PageRank: the shard plane's collective over one shard.  On
+    CUDA the per-iteration ``index_add_`` adds with atomics, so the f32
     order (and the last bits) can change from run to run."""
-    dev = src.device
-    deg = torch.bincount(src, minlength=n).to(torch.float32)
-    inv_deg = torch.where(deg > 0, 1.0 / torch.clamp(deg, min=1.0), 0.0)
-    p = torch.full((n,), 1.0 / n, dtype=torch.float32, device=dev)
-    src64 = src.long()
-    for _ in range(iters):
-        contrib = (p * inv_deg)[src64]
-        agg = torch.zeros(n, dtype=torch.float32, device=dev).index_add_(0, dst, contrib)
-        dangling = torch.where(deg == 0, p, 0.0).sum()
-        p = _pr_step(agg, dangling, n, damping)
-    return p
+    return make_pagerank(n, iters=iters, damping=damping)([src], [dst], [None])
 
 
 # ---------------------------------------------------------------------------
-# BFS (level-synchronous, dense frontiers)
+# BFS (level-synchronous, dense frontiers), SSSP (Bellman-Ford with early
+# exit) and WCC (label propagation with pointer jumping): each is the shard
+# plane's collective of :mod:`repro_torch.core.distributed` over one shard,
+# so every loop lives in one place.
 # ---------------------------------------------------------------------------
 def bfs_coo(src: torch.Tensor, dst: torch.Tensor, n: int, root: int) -> torch.Tensor:
-    dev = src.device
-    src64, dst64 = src.long(), dst.long()
-    level = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    level[root] = 0
-    frontier = torch.zeros(n, dtype=torch.bool, device=dev)
-    frontier[root] = True
-    d = 0
-    while bool(frontier.any()):
-        hit = torch.full((n,), _I32_MIN, dtype=torch.int32, device=dev).scatter_reduce_(
-            0, dst64, frontier[src64].to(torch.int32), "amax", include_self=False
-        )
-        frontier = (hit > 0) & (level < 0)
-        level = torch.where(frontier, d + 1, level)
-        d += 1
-    bfs_coo.iterations = d
+    fn = make_bfs(n)
+    level = fn([src], [dst], [None], root)
+    bfs_coo.iterations = fn.iterations
     return level
 
 
 bfs_coo.iterations = 0
 
 
-# ---------------------------------------------------------------------------
-# SSSP (Bellman-Ford with early exit)
-# ---------------------------------------------------------------------------
 def sssp_coo(
     src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor, n: int, root: int
 ) -> torch.Tensor:
-    dev = src.device
-    src64, dst64 = src.long(), dst.long()
-    dist = torch.full((n,), float("inf"), dtype=torch.float32, device=dev)
-    dist[root] = 0.0
-    changed, it = True, 0
-    while changed and it < n:
-        cand = torch.full((n,), float("inf"), dtype=torch.float32, device=dev)
-        cand.scatter_reduce_(0, dst64, dist[src64] + w, "amin", include_self=False)
-        new = torch.minimum(dist, cand)
-        changed = bool((new < dist).any())
-        dist, it = new, it + 1
-    sssp_coo.iterations = it
+    fn = make_sssp(n)
+    dist = fn([src], [dst], [None], [w], root)
+    sssp_coo.iterations = fn.iterations
     return dist
 
 
 sssp_coo.iterations = 0
 
 
-# ---------------------------------------------------------------------------
-# WCC (label propagation; pass symmetrized edges for directed graphs)
-# ---------------------------------------------------------------------------
 def wcc_coo(src: torch.Tensor, dst: torch.Tensor, n: int) -> torch.Tensor:
-    dev = src.device
-    src64, dst64 = src.long(), dst.long()
-    labels = torch.arange(n, dtype=torch.int32, device=dev)
-    changed, it = True, 0
-    while changed:
-        cand = torch.full((n,), _I32_MAX, dtype=torch.int32, device=dev)
-        cand.scatter_reduce_(0, dst64, labels[src64], "amin", include_self=False)
-        new = torch.minimum(labels, cand)
-        # pointer-jump (path halving) accelerates convergence
-        new = new[new.long()]
-        changed = bool((new != labels).any())
-        labels, it = new, it + 1
-    wcc_coo.iterations = it
+    """Labels of the weakly connected components: every edge propagates
+    labels in both directions, so a directed edge list needs no
+    symmetrizing (a symmetrized one gives the same labels)."""
+    fn = make_wcc(n)
+    labels = fn([src], [dst], [None])
+    wcc_coo.iterations = fn.iterations
     return labels
 
 
@@ -126,28 +86,46 @@ wcc_coo.iterations = 0
 # View-level entry points — analytics over the view's device COO
 # (``view.to_coo_device()``): the edge arrays stay resident on
 # ``view.device``, so a warm repeat performs zero host->device transfers.
+#
+# When the view's store has a shard plane attached
+# (``RapidStore.attach_shard_plane``), the entry points route through the
+# plane's collectives over its per-shard tiles instead
+# (``REPRO_DISABLE_SHARD_PLANE`` opts out) — see
+# :mod:`repro_torch.core.shard_plane` for the parity contract.
 # ---------------------------------------------------------------------------
 def pagerank_view(view, iters: int = 10, damping: float = 0.85) -> torch.Tensor:
+    plane = active_plane(view)
+    if plane is not None:
+        return plane.pagerank(view, iters=iters, damping=damping)
     src, dst = view.to_coo_device()
     return pagerank_coo(src, dst, view.n_vertices, iters=iters, damping=damping)
 
 
 def bfs_view(view, root: int) -> torch.Tensor:
+    plane = active_plane(view)
+    if plane is not None:
+        return plane.bfs(view, root)
     src, dst = view.to_coo_device()
     return bfs_coo(src, dst, view.n_vertices, root)
 
 
 def sssp_view(view, w, root: int) -> torch.Tensor:
+    plane = active_plane(view)
+    if plane is not None:
+        return plane.sssp(view, w, root)
     src, dst = view.to_coo_device()
     w = torch.as_tensor(w, dtype=torch.float32, device=view.device)
     return sssp_coo(src, dst, w, view.n_vertices, root)
 
 
 def wcc_view(view) -> torch.Tensor:
-    """WCC over a directed view: symmetrizes the cached device COO (the
-    concat never round-trips to host)."""
+    """WCC over a directed view: both directions of the cached device COO
+    propagate (under a shard plane, each shard's local edges)."""
+    plane = active_plane(view)
+    if plane is not None:
+        return plane.wcc(view)
     src, dst = view.to_coo_device()
-    return wcc_coo(torch.cat([src, dst]), torch.cat([dst, src]), view.n_vertices)
+    return wcc_coo(src, dst, view.n_vertices)
 
 
 def triangle_count_view(view) -> int:

@@ -124,15 +124,20 @@ def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=dt, copy=True)).to(device)
 
 
-def _device_put(host_arrays: Sequence[np.ndarray], device: torch.device) -> tuple:
+def _device_put(host_arrays: Sequence[np.ndarray], device: torch.device,
+                shard: Optional[int] = None) -> tuple:
+    """Upload ``host_arrays`` to ``device``, counted in ``stats`` and traced
+    (with the shard index, for a shard plane's upload)."""
     tok = _trc.begin()
     out = tuple(_upload(a, device) for a in host_arrays)
     stats.add("uploads", len(host_arrays))
     nbytes = int(sum(o.nbytes for o in out))
     stats.add("bytes_uploaded", nbytes)
     if tok:
-        _trc.end(tok, "upload", cat="read",
-                 args={"nbytes": nbytes, "n_arrays": len(host_arrays)})
+        args = {"nbytes": nbytes, "n_arrays": len(host_arrays)}
+        if shard is not None:
+            args.update(shard=int(shard), device=str(device))
+        _trc.end(tok, "upload", cat="read", args=args)
     return out
 
 
@@ -275,8 +280,135 @@ def coo_tiles(snap, device: torch.device) -> tuple:
 
 def note_release(snap) -> None:
     """Record (for stats) that a snapshot's device tiles died with GC."""
-    if snap._dev_blocks_cache is not None or snap._dev_coo_cache is not None:
+    if (
+        snap._dev_blocks_cache is not None
+        or snap._dev_coo_cache is not None
+        or snap._shard_dev_cache
+    ):
         stats.add("releases")
+
+
+# ---------------------------------------------------------------------------
+# Per-(snapshot, shard) tiles — the shard plane's residency layer.
+#
+# Same lifecycle as the default-device tiles above (upload once per snapshot
+# version, generation-stamped against recycled LeafPool rows, dropped in
+# release()), but pinned on the device of an EXPLICIT shard: the shard plane
+# (repro_torch.core.shard_plane) places each subgraph's tiles on the shard
+# its placement policy chose, so a commit dirtying subgraphs on one shard
+# uploads only to that shard.  Entries are keyed ``(kind, k)`` by the
+# shard's slot ``k`` in the plane, never by its device: several shards may
+# share one card (or the CPU), and a device key would merge their entries.
+# The functions return ``(tiles, uploaded_bytes)`` — 0 bytes on a hit — so
+# the plane can keep per-shard upload counters on top of ``stats``.
+# ---------------------------------------------------------------------------
+def _shard_host_tiles(snap, kind: str, k: int, device: torch.device) -> tuple:
+    """Upload one snapshot's ``kind`` tiles for shard ``k``: ``(tiles,
+    nbytes)``.  COO tiles are ``(src, dst)``; leaf tiles ``(src, rows,
+    length)`` with only the packed stream crossing the bus (``rows`` is
+    re-padded to the pool's width on the device, so ``nbytes`` counts live
+    bytes).  Raises RuntimeError on a released snapshot."""
+    if kind == "coo":
+        tiles = _device_put(snap.to_coo_global(), device, shard=k)
+        return tiles, int(sum(t.nbytes for t in tiles))
+    data, _offsets, lens, keys, _tiers = snap.to_leaf_stream_global()
+    up = _device_put((data, lens, keys), device, shard=k)
+    d, l, s = up
+    return (s, _pad_tiles_on_device(d, l, snap.pool.B), l), int(sum(t.nbytes for t in up))
+
+
+def _install(snap, key, tiles) -> tuple:
+    """Cache ``tiles`` under ``key`` (first writer wins) and stamp the
+    snapshot; call under ``_mat_lock``.  Returns the cached tiles."""
+    if snap._shard_dev_cache is None:
+        snap._shard_dev_cache = {}
+    if snap._dev_gen_stamp is None:
+        snap._dev_gen_stamp = _gen_stamp(snap)
+    return snap._shard_dev_cache.setdefault(key, tiles)
+
+
+def _shard_tiles(snap, kind: str, k: int, device: torch.device) -> Tuple[tuple, int]:
+    key = (kind, int(k))
+    cache = snap._shard_dev_cache
+    if cache is not None and key in cache:
+        _hit()
+        return cache[key], 0
+    with _mat_lock:
+        cache = snap._shard_dev_cache
+        if cache is not None and key in cache:
+            _hit()
+            return cache[key], 0
+        _miss()
+        tiles, nbytes = _shard_host_tiles(snap, kind, k, device)
+        return _install(snap, key, tiles), nbytes
+
+
+def shard_coo_tiles(snap, k: int, device: torch.device) -> Tuple[tuple, int]:
+    """int32 ``(src, dst)`` COO tiles of one snapshot for shard ``k``, on
+    ``device``.  Memoized per (snapshot, shard); returns ``(tiles,
+    uploaded_bytes)`` with 0 bytes on a hit.  Raises RuntimeError on
+    released snapshots (the pool may have recycled their rows)."""
+    return _shard_tiles(snap, "coo", k, device)
+
+
+def shard_leaf_tiles(snap, k: int, device: torch.device) -> Tuple[tuple, int]:
+    """int32 ``(src, rows, length)`` leaf tiles for shard ``k`` on
+    ``device``, ``rows`` at the pool's width ``B`` (the max tier on a tiered
+    pool).  Same contract as :func:`shard_coo_tiles`; only the compacted
+    stream crosses the bus."""
+    return _shard_tiles(snap, "blocks", k, device)
+
+
+# ---------------------------------------------------------------------------
+# Migration staging — the SEND/RECV/FREE halves of the reshard runtime
+# (repro_torch.core.reshard).  SEND uploads WITHOUT installing into the
+# snapshot cache, so an aborted migration leaves no trace; RECV commits the
+# staged tiles under the same lock + generation stamp the normal fetch path
+# uses; FREE drops a shard's entries after the placement flip (any straggler
+# reader at the old placement just re-uploads — correctness is unaffected,
+# only the one transfer is repaid).
+# ---------------------------------------------------------------------------
+def stage_shard_tiles(snap, k: int, device: torch.device, kind: str):
+    """SEND: upload one snapshot's ``kind`` tiles for shard ``k``, unstaged.
+
+    Returns ``(key, tiles, uploaded_bytes)``; 0 bytes when the tiles are
+    already resident (the migration then degenerates to a cache no-op).
+    Raises RuntimeError on a released snapshot, like the fetch paths.
+    """
+    key = (kind, int(k))
+    cache = snap._shard_dev_cache
+    if cache is not None and key in cache:
+        return key, cache[key], 0
+    tiles, nbytes = _shard_host_tiles(snap, kind, k, device)
+    return key, tiles, nbytes
+
+
+def install_shard_tiles(snap, key, tiles) -> None:
+    """RECV: commit staged tiles into the per-(snapshot, shard) cache.
+
+    First writer wins, under the materialization lock: if a concurrent
+    view assembly already uploaded the same entry, its tiles stay and the
+    staged copy is dropped — both are identical materializations of the
+    same immutable snapshot.
+    """
+    with _mat_lock:
+        _install(snap, key, tiles)
+
+
+def drop_shard_tiles(snap, k: int, kinds=("coo", "blocks")) -> int:
+    """FREE: drop ``snap``'s cache entries of shard ``k``; returns the bytes
+    released.  Safe against concurrent readers: assembled view bundles hold
+    their own tensors, so dropping the entry only makes a future assembly
+    at the old placement upload again."""
+    freed = 0
+    with _mat_lock:
+        cache = snap._shard_dev_cache
+        if cache:
+            for kind in kinds:
+                tiles = cache.pop((kind, int(k)), None)
+                if tiles is not None:
+                    freed += int(sum(int(t.nbytes) for t in tiles))
+    return freed
 
 
 # ---------------------------------------------------------------------------
@@ -420,8 +552,13 @@ __all__ = [
     "assemble_leaf_blocks",
     "coo_tiles",
     "csr_offsets",
+    "drop_shard_tiles",
+    "install_shard_tiles",
     "leaf_block_tiles",
     "note_release",
+    "shard_coo_tiles",
+    "shard_leaf_tiles",
+    "stage_shard_tiles",
     "stats",
     "tiles_fresh",
 ]

@@ -210,11 +210,13 @@ class SnapshotView:
     device path's padding.  ``device`` is the ``torch.device`` the view's
     device materializations (``to_*_device``) live on: the store's.  It is
     required, so that no view lands on the host unless a caller asks.
+    ``plane`` is the store's :class:`~repro_torch.core.shard_plane.ShardPlane`
+    when one is attached: the view's collective analytics route through it.
     """
 
     __slots__ = (
         "ts", "p", "snaps", "n_vertices", "B", "assembly", "_pred", "_lineage",
-        "_base", "device",
+        "_plane", "_base", "device",
     )
 
     def __init__(
@@ -226,6 +228,7 @@ class SnapshotView:
         B: Optional[int] = None,
         pred=None,
         lineage=None,
+        plane=None,
         base=None,
         *,
         device,
@@ -238,6 +241,7 @@ class SnapshotView:
         self.assembly = None  # ViewAssembly, created lazily on materialization
         self._pred = pred  # weakref to the predecessor view's ViewAssembly
         self._lineage = lineage  # CommitLineage for the dirty-set diff
+        self._plane = plane  # ShardPlane routing collective analytics, or None
         self._base = base  # STRONG ref to the compactor's frozen base bundle
         self.device = torch.device(device)
 

@@ -170,13 +170,13 @@ class RapidStore:
         self.lineage = CommitLineage()
         self._retired_assembly = None
         self._retire_lock = threading.Lock()
-        # mesh shard plane: not part of this package yet, so always None
-        # (single-device paths)
+        # shard plane (attach_shard_plane); None = single-device paths
         self.shard_plane = None
-        # durable placement-epoch history [(ts, {sid: dst})] — replayed from
-        # WAL migrate records so a log a sharded store wrote still recovers
+        # durable placement-epoch history [(ts, {sid: dst})] — appended by
+        # each migration flip and replayed from WAL migrate records, so a
+        # re-attached plane resolves the same placement history
         self._placement_log: List[Tuple[int, Dict[int, int]]] = []
-        # elastic rebalancer: not part of this package yet, so always None
+        # elastic rebalancer (attach_rebalancer); needs a shard plane
         self.rebalancer = None
         # decoupled write pipeline (attach_write_pipeline); None = single-shot
         self.write_pipeline = None
@@ -417,6 +417,7 @@ class RapidStore:
             t, self.p, snaps, self.n_vertices, B=self.B,
             pred=weakref.ref(retired) if retired is not None else None,
             lineage=self.lineage,
+            plane=self.shard_plane,
             base=self._base_assembly,
             device=self.device,
         )
@@ -458,75 +459,96 @@ class RapidStore:
         finally:
             self.end_read(h)
 
-    # -- introspection ------------------------------------------------------------
-    def memory_breakdown(self) -> Dict[str, int]:
-        """Per-component byte accounting (exported as ``store_memory_bytes``
-        gauges, one per component; :meth:`memory_bytes` is their sum)."""
-        versions = 0
-        for chain in self.chains:
-            # capture the list reference once, the lock-free convention
-            # resolve() follows: collect()/link() replace the attribute with
-            # a new list, so a captured reference is a stable snapshot
-            snaps = chain._versions
-            for snap in snaps:
-                versions += snap.ci.values.nbytes + snap.ci.offsets.nbytes
-                versions += snap.active.nbytes
-                versions += snap.cache_bytes()
-                versions += snap.device_cache_bytes()
-                for d in snap.dirs.values():
-                    versions += d.leaf_ids.nbytes + d.leaf_min.nbytes
-        retired = self._retired_assembly
-        # the one retained delta-plane bundle (successor splice source)
-        retired_b = (
-            retired.host_bytes() + retired.device_bytes()
-            if retired is not None else 0
+    # -- shard plane --------------------------------------------------------------
+    def attach_shard_plane(
+        self,
+        n_devices: Optional[int] = None,
+        policy="modulo",
+        symmetric: bool = False,
+        devices=None,
+    ):
+        """Attach a :class:`~repro_torch.core.shard_plane.ShardPlane`.
+
+        Subsequent ``begin_read`` views route their collective analytics
+        (``pagerank_view`` etc. and ``spmm_view``) through the plane's
+        per-shard tiles.  ``devices`` lists each shard's ``torch.device``
+        (repeats allowed: several shards may share a card); without it
+        ``n_devices`` shards follow ``self.device`` — on the CPU every
+        shard is ``cpu``, on CUDA shard ``k`` sits on visible card
+        ``k % n_cards`` (:func:`repro_torch.launch.mesh.shard_devices`).
+        ``symmetric=True`` declares the store holds a symmetrized graph,
+        enabling the pull-form PageRank (see the shard_plane docstring).
+
+        Any placement epochs in the store's durable log (earlier
+        migrations, or WAL-replayed migrate records) are replayed into the
+        fresh plane, so a re-attach — including after :meth:`recover` —
+        resolves the same placement history as before.
+        """
+        from .shard_plane import ShardPlane
+
+        plane = ShardPlane(
+            self, devices=devices, n_devices=n_devices, policy=policy,
+            symmetric=symmetric,
         )
+        for ts, moves in self._placement_log:
+            plane.record_epoch(ts, moves)
+        self.shard_plane = plane
+        return plane
+
+    def detach_shard_plane(self) -> None:
+        """Drop the plane; new views take the single-device paths again.
+
+        Releases everything the plane pinned: its per-shard telemetry
+        metrics (``plane.close()`` — leaving them registered would leak
+        dead gauges into every export and keep the plane alive through
+        their closures), the retired AND frozen-base bundles' sharded
+        twins, and every snapshot's per-(snapshot, shard) tile cache, so
+        ``memory_bytes()`` returns to its pre-attach level.
+        """
+        if self.rebalancer is not None:
+            self.detach_rebalancer()
+        plane = self.shard_plane
+        self.shard_plane = None
+        if plane is not None:
+            plane.close()
+        with self._retire_lock:
+            retired = self._retired_assembly
+            if retired is not None:
+                retired.sharded = None
         base = self._base_assembly
-        # the compactor's frozen base level (strong ref, splice source)
-        base_b = (
-            base.host_bytes() + base.device_bytes()
-            if base is not None and base is not retired else 0
-        )
-        # logical writes queued/prepared in the pipeline but not yet linked
-        wp = self.write_pipeline
-        return {
-            "pool": self.pool.memory_bytes(),
-            "versions": versions,
-            "retired": retired_b,
-            "base": base_b,
-            # commit-lineage log (trimmed by the compactor's fold horizon)
-            "lineage": self.lineage.memory_bytes(),
-            "pipeline": wp.queued_bytes() if wp is not None else 0,
-        }
+        if base is not None:
+            base.sharded = None
+        from . import device_cache as _dc
 
-    def memory_bytes(self) -> int:
-        return sum(self.memory_breakdown().values())
+        with _dc._mat_lock:
+            for chain in self.chains:
+                for snap in chain._versions:
+                    if snap._shard_dev_cache:
+                        snap._shard_dev_cache.clear()
 
-    def reader_horizon_lag(self) -> int:
-        """How far the oldest active reader pins behind ``t_r`` (0: none)."""
-        oldest = self.tracer.min_active_timestamp()
-        if oldest == FREE_TS:
-            return 0
-        return max(0, self.clock.read_timestamp() - oldest)
+    # -- elastic rebalancer -------------------------------------------------------
+    def attach_rebalancer(self, **kw):
+        """Attach a :class:`~repro_torch.core.reshard.Rebalancer` (see its doc).
 
-    def telemetry_report(self) -> str:
-        """Human-readable snapshot of counters, gauges, histograms, spans."""
-        from ..obs import export as _export
+        Requires an attached shard plane.  Keyword arguments are forwarded
+        (``imbalance_threshold``, ``max_moves``, ``queue_weight``).  Drive
+        it with ``rebalancer.rebalance_once()`` or ``rebalancer.start()``.
+        """
+        from .reshard import Rebalancer
 
-        return _export.telemetry_report(self)
+        if self.rebalancer is not None:
+            raise RuntimeError("a rebalancer is already attached")
+        self.rebalancer = Rebalancer(self, **kw)
+        return self.rebalancer
 
-    def fill_ratio(self) -> float:
-        return self.pool.fill_ratio()
-
-    def chain_lengths(self) -> np.ndarray:
-        return np.array([len(c) for c in self.chains])
-
-    def check_invariants(self) -> None:
-        self.pool.check_invariants()
-        for chain in self.chains:
-            versions = chain._versions  # stable reference; see memory_bytes
-            for snap in versions:
-                snap.check_invariants()
+    def detach_rebalancer(self) -> None:
+        rb = self.rebalancer
+        if rb is None:
+            return
+        try:
+            rb.stop()
+        finally:
+            self.rebalancer = None
 
     # -- decoupled write pipeline -----------------------------------------------
     def attach_write_pipeline(self, n_shards: int = 4, max_batch: int = 1024):

@@ -15,6 +15,13 @@ Reference ownership: every snapshot version owns one pool reference per leaf
 row reachable from its directories.  ``apply_updates`` settles the accounting
 (new rows are born owned; shared rows gain a reference); ``release`` drops a
 reclaimed version's references wholesale (writer-driven GC, paper §5.3/6.4).
+
+Caches a snapshot holds, each filled at most once and all dropped by
+``release``: on the host the COO arrays and the compacted leaf stream (with
+the pool-generation stamp taken when it was built); on the store's device
+the leaf tiles and the COO tensors (:mod:`repro_torch.core.device_cache`,
+with their own stamp); and, while a shard plane is attached, the per-shard
+tiles keyed by ``(kind, shard index)`` (:mod:`repro_torch.core.shard_plane`).
 """
 
 from __future__ import annotations
@@ -120,6 +127,14 @@ class SubgraphSnapshot:
         default=None, init=False, repr=False, compare=False
     )
     _dev_gen_stamp: Optional[Tuple[np.ndarray, np.ndarray]] = field(
+        default=None, init=False, repr=False, compare=False
+    )
+    # Shard-plane residency: {("coo"|"blocks", shard index) -> tile tensors}
+    # pinned on the device of the shard the placement assigned this
+    # subgraph to (repro_torch.core.shard_plane).  Keyed by the shard's
+    # slot, not its device: several shards may share one card.  Same
+    # lifecycle as the default-device caches.
+    _shard_dev_cache: Optional[Dict] = field(
         default=None, init=False, repr=False, compare=False
     )
     # Set by ``release()``: the pool may recycle this version's rows, so any
@@ -311,6 +326,7 @@ class SubgraphSnapshot:
         self._dev_blocks_cache = None
         self._dev_coo_cache = None
         self._dev_gen_stamp = None
+        self._shard_dev_cache = None
         self._released = True
 
     # -- materialization ----------------------------------------------------------
@@ -565,6 +581,9 @@ class SubgraphSnapshot:
                 total += cached.device_bytes()
             else:
                 total += sum(int(a.nbytes) for a in cached)
+        if self._shard_dev_cache:
+            for tiles in self._shard_dev_cache.values():
+                total += sum(int(a.nbytes) for a in tiles)
         return total
 
     def check_invariants(self) -> None:

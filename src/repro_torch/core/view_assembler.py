@@ -187,6 +187,7 @@ class ViewAssembly:
         "host_coo", "host_stream", "host_blocks", "host_csr",
         "dev_coo", "dev_csr", "dev_blocks",
         "src_order", "src_offsets",
+        "sharded",
         "__weakref__",
     )
 
@@ -209,13 +210,17 @@ class ViewAssembly:
         self.dev_blocks = None  # DeviceLeafBlockView
         self.src_order: Optional[np.ndarray] = None
         self.src_offsets: Optional[np.ndarray] = None
+        # Shard-plane twin (ShardedViewAssembly): per-shard padded tile
+        # bundles the shard plane splices across views — rides in the same
+        # retire/weak-predecessor lifecycle as the host/device fields.
+        self.sharded = None
 
     def has_content(self) -> bool:
         return any(
             x is not None
             for x in (
                 self.host_coo, self.host_stream, self.host_blocks,
-                self.host_csr, self.dev_coo, self.dev_blocks,
+                self.host_csr, self.dev_coo, self.dev_blocks, self.sharded,
             )
         )
 
@@ -253,6 +258,8 @@ class ViewAssembly:
             total += int(self.dev_csr.offsets.nbytes)
             if self.dev_coo is None or self.dev_csr.indices is not self.dev_coo[1]:
                 total += int(self.dev_csr.indices.nbytes)
+        if self.sharded is not None:
+            total += self.sharded.device_bytes()
         return total
 
 

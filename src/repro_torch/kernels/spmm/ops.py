@@ -157,7 +157,17 @@ def spmm_view(view, h) -> torch.Tensor:
     every vertex's leaves share one tier, so the other tiers add exact zeros.
     On CUDA ``index_add_`` adds with atomics, so the f32 order (and the last
     bits) can change from run to run.
+
+    Under an attached shard plane the same kernel runs per shard over its
+    pinned tiles and the tile outputs add by source into one output, each
+    vertex's tiles in this order (every source vertex lives on one shard);
+    see :mod:`repro_torch.core.shard_plane`.
     """
+    from ...core.shard_plane import active_plane
+
+    plane = active_plane(view)
+    if plane is not None:
+        return plane.spmm(view, h)
     blocks = view.to_leaf_blocks_device()
     h = torch.as_tensor(h, dtype=torch.float32, device=view.device)
     out = torch.zeros((view.n_vertices, h.shape[1]), dtype=torch.float32,
