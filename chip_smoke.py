@@ -73,6 +73,30 @@ script exits non-zero without the last line):
              snapshots without device tiles), then a warm repeat with zero
              uploads; commits/s, group sizes, fold seconds and report, R2's
              cold view with the assembler counters, ``memory_breakdown()``
+5g. gnn_train  on the main store (no write pipeline attached): gin-tu at
+             its published config trains for 20 steps at ``GNN_SHAPES``'
+             minibatch_lg (1,024 seeds, fanouts 15, 10, d_feat 602), as
+             ``examples/train_gnn_dynamic.py`` does: a writer thread
+             streams edge updates through ``insert_edges``/
+             ``delete_edges`` while each step samples from a pinned view
+             (20 sampled edges of step 0 checked against ``view.scan``),
+             gathers the [4,194,304, 602] f32 features held on the card
+             and takes a train step; the loss finite and falling (the
+             last 5 steps' mean below the first 5's).  After the loop:
+             one step each of gcn-cora, gatedgcn and pna at their
+             published configs on step 0's batch; step 0's loss and every
+             gradient leaf of all four against the CPU route, which runs
+             on a host thread beside the checkpoint of (params, AdamW
+             state), restored bitwise, and ``check_invariants`` (float64:
+             loss rtol 1e-4, each leaf within ``GNN_F64_GRAD_TOL`` of its
+             largest magnitude, reversed edges and the card's f32 outside
+             it; gin-tu in f32 too: each leaf within 2e-3, or ten times
+             the CPU route's own f32 error where larger, reversed edges
+             outside it); the loop's own step-0 loss against the CPU's;
+             AdamW on the card against the CPU on the same gradients
+             (1e-6); the split of a step (sampling, gather, step),
+             steps/s over the timed steps (all but the profiled one),
+             commits, one profiled step's device busy time, peak bytes
 5b. durability  a directed R-MAT store of scale 18 with the paper's skew
              tiers (64, 512): WAL with fsync and the compactor's checkpoint
              under one temporary directory, 200 pipelined writes, a fold
@@ -119,7 +143,8 @@ script exits non-zero without the last line):
 10. the ``kernels`` line, then the ``ok`` line.
 
 The launch counters are set to 0 just before each of phases 3-6, 5s, 5a,
-5b, 8 and 9 and read just after it; every kernel a phase calls must have
+5g, 5b, 8 and 9 and read just after it (5g launches no hand kernel: its
+segment ops are torch ops); every kernel a phase calls must have
 launched in it.  The ``kernels`` line's ``launches`` is the count on each
 kernel's own path (phase 3 for the graph kernels, 8 for flash_decode, 9 for
 embedding_bag), and ``launches_by_path`` holds every phase's.  The
@@ -130,6 +155,10 @@ recovery rebuilds the store with ``from_edges`` (246.7 s at scale 22 on
 the host), twice here; its SpMM width is 16 and its intersect pairs
 1,024, because its CPU route materializes [tiles, B, d] and
 [pairs, Ba, Bb].
+
+The GNN phase's cut: the graph is the scale-22 R-MAT store, not
+minibatch_lg's Reddit graph (232,965 x 114.6M); 20 steps, not the
+example's 300.
 
 ``bound_ms`` counts the bytes the function needs on this run's data, not
 the whole tiles: a tile's live ids are a sorted prefix followed by
@@ -181,6 +210,22 @@ DECODE_BATCH = 4  # decode_32k's global batch is 128: cut to fit one card
 DECODE_STEPS = 8  # greedy tokens after the cache is filled to DECODE_SEQ - 8
 SERVE_BATCHES = (512, 262144)  # serve_p99, serve_bulk
 N_CANDIDATES = 1_000_000  # retrieval_cand
+GNN_ARCH, GNN_OTHER = "gin-tu", ("gcn-cora", "gatedgcn", "pna")
+GNN_SEEDS, GNN_FANOUTS, GNN_D_FEAT = 1024, (15, 10), 602  # GNN_SHAPES' minibatch_lg
+GNN_STEPS, GNN_LR = 20, 3e-3  # the example's lr; 20 steps, not its 300
+GNN_LOSS_RTOL, GNN_ADAMW_TOL = 1e-4, 1e-6
+# float64 gradient leaves, card against CPU, of their largest magnitude, by
+# model kind.  GIN and GatedGCN compute every term in float64 (the H100 and
+# its host agree to 2.7e-15 at most).  GCN's rsqrt and PNA's log1p of the
+# degrees stay f32, as in the reference, and the card's f32 libm differs
+# from the host's by an ulp or two there (3.5e-8 and 1.9e-8 measured); the
+# card's f32 gradients sit 5.1e-7 (GCN) and more (the rest) from float64,
+# which each run checks these limits reject
+GNN_F64_GRAD_TOL = {"gin": 1e-9, "gatedgcn": 1e-9, "gcn": 1.5e-7, "pna": 1.5e-7}
+# f32 gradient leaves, of their largest magnitude: layer 0's w0 sums
+# 169,984 rows with cancellation, so both routes' f32 sit up to ~5e-4 from
+# float64 (``card_f32_vs_f64`` and ``cpu_f32_vs_f64`` in the phase's line)
+GNN_F32_GRAD_TOL = 2e-3
 
 KERNELS = {
     "leaf_search": ("src/repro_torch/csrc/leaf_search.cu",
@@ -202,8 +247,14 @@ KERNEL_PATH = {"leaf_search": "main", "leaf_scan_reduce": "main", "leaf_spmm": "
                "flash_decode": "lm_serve"}
 
 
+START = time.monotonic()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}, default=float), flush=True)
+    """One JSON line; ``elapsed_s`` is the script's wall time so far (the
+    whole run has a time limit, so each phase's share is on record)."""
+    print(json.dumps({"phase": phase, **fields, "elapsed_s": time.monotonic() - START},
+                     default=float), flush=True)
 
 
 def sync(device) -> None:
@@ -1461,6 +1512,394 @@ def phase_write_side(store, seed, device) -> None:
          base_bundle_bytes={"host": base.host_bytes(), "device": base.device_bytes()})
 
 
+# ---------------------------------------------------------------------------
+# Phase 5g: GNN training on the live store
+# ---------------------------------------------------------------------------
+def gnn_config(arch: str):
+    from repro_torch.configs import registry
+
+    return (registry.get_smoke_config if MODEL_SMOKE else registry.get_config)(arch)
+
+
+def gnn_flops(cfg, n_nodes: int, n_edges: int, d_feat: int) -> float:
+    """A train step's FLOPs by the reference's formula
+    (``repro/roofline/model.py:112``): per layer E*d messages and N*d^2
+    transforms, the first layer's N*d_feat*d, x3 for the backward."""
+    d = cfg.d_hidden
+    per_layer = 2.0 * n_edges * d + 2.0 * n_nodes * d * d
+    return 3.0 * (2.0 * n_nodes * d_feat * d + cfg.n_layers * per_layer)
+
+
+def leaf_errors(got, want) -> list:
+    """Per leaf (``tree_leaves`` order): largest |got - want| over the
+    leaf's largest |want|, in float64 on the host."""
+    from repro_torch.optim.tree import tree_leaves
+
+    out = []
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        g, w = g.detach().cpu().double(), w.detach().cpu().double()
+        out.append(float((g - w).abs().max() / max(float(w.abs().max()), 1e-30)))
+    return out
+
+
+def gnn_grads(cfg, params, batch, n_nodes: int, dev, dtype, reverse: bool = False):
+    """((loss, grads), seconds) of the GNN loss at ``params`` on ``batch``,
+    both copied to ``dev`` in ``dtype``; ``reverse`` swaps ``src`` and
+    ``dst``, the planted fault."""
+    from repro_torch.optim.tree import tree_map
+    from repro_torch.train.step import gnn_value_and_grad
+
+    p = tree_map(lambda t: t.to(dev, dtype), params)
+    b = {k: t.to(dev, dtype) if t.is_floating_point() else t.to(dev) for k, t in batch.items()}
+    src, dst = (b["dst"], b["src"]) if reverse else (b["src"], b["dst"])
+    return wall(lambda: gnn_value_and_grad(
+        cfg, p, b["feats"], src, dst, b["emask"], b["labels"], b["lmask"], n_nodes), dev)
+
+
+def gnn_card_routes(cfg, params, batch, n_nodes: int, device, f32_fault: bool) -> dict:
+    """The card's (loss, grads) at ``params`` on ``batch`` in float64 and
+    f32, and with the edges reversed in float64 (and f32 with
+    ``f32_fault``), keyed by route, with their seconds."""
+    import torch
+
+    out, secs = {}, {}
+    for name, dtype, reverse in (("f64", torch.float64, False), ("f64_reversed", torch.float64, True),
+                                 ("f32", torch.float32, False), ("f32_reversed", torch.float32, True)):
+        if name != "f32_reversed" or f32_fault:
+            out[name], secs[name] = gnn_grads(cfg, params, batch, n_nodes, device, dtype, reverse)
+    return dict(routes=out, seconds=secs)
+
+
+def gnn_cpu_routes(cfg, params, batch, n_nodes: int, f32: bool) -> dict:
+    """The port's CPU route on host copies: float64, and f32 with ``f32``."""
+    import torch
+
+    cpu = torch.device("cpu")
+    out, secs = {}, {}
+    for name, dtype in (("f64", torch.float64), ("f32", torch.float32))[:2 if f32 else 1]:
+        out[name], secs[name] = gnn_grads(cfg, params, batch, n_nodes, cpu, dtype)
+    return dict(routes=out, seconds=secs)
+
+
+def hold_gnn(cfg, what: str, got, want, limits, controls: dict) -> dict:
+    """``got`` (loss, grads) against ``want``: the loss within
+    ``GNN_LOSS_RTOL``, every gradient leaf within its limit of its largest
+    magnitude.  Each of ``controls`` (name -> (loss, grads)) must put some
+    leaf outside its limit.  Returns the figures."""
+    from repro_torch.optim.tree import tree_leaves
+
+    loss_err = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
+    if not math.isfinite(float(got[0])) or loss_err > GNN_LOSS_RTOL:
+        raise AssertionError(f"{cfg.name} {what}: card loss {float(got[0])} "
+                             f"vs CPU {float(want[0])}")
+    errs = leaf_errors(got[1], want[1])
+    if not len(errs) == len(limits) == len(tree_leaves(want[1])):
+        raise AssertionError(f"{cfg.name} {what}: gradient trees differ in their leaves")
+    over = [(i, e, lim) for i, (e, lim) in enumerate(zip(errs, limits)) if not e <= lim]
+    if over:
+        raise AssertionError(f"{cfg.name} {what}: gradient leaves outside their limits: {over}")
+    out = dict(loss_rel_err=loss_err, max_leaf_err=max(errs), max_leaf_limit=max(limits))
+    for name, bad in controls.items():
+        bad_errs = leaf_errors(bad[1], want[1])
+        if all(e <= lim for e, lim in zip(bad_errs, limits)):
+            raise AssertionError(f"{cfg.name} {what}: the control {name} passes the check")
+        out[f"{name}_max_leaf_err"] = max(bad_errs)
+    return out
+
+
+def hold_gnn_step(cfg, card: dict, cpu: dict) -> dict:
+    """Step 0's card routes against the CPU's.  Float64: each leaf within
+    ``GNN_F64_GRAD_TOL[kind]``; reversed edges and the card's f32 are the
+    controls.  f32, where the CPU route ran it: each leaf within
+    ``GNN_F32_GRAD_TOL`` or ten times the CPU route's own f32 error
+    (against its float64) where that is larger, as f32 GNNs can be
+    ill-conditioned; reversed edges the control."""
+    from repro_torch.optim.tree import tree_leaves
+
+    c, h = card["routes"], cpu["routes"]
+    n_leaves = len(tree_leaves(h["f64"][1]))
+    out = dict(loss=float(c["f32"][0]), leaves=n_leaves,
+               f64=hold_gnn(cfg, "f64", c["f64"], h["f64"], [GNN_F64_GRAD_TOL[cfg.kind]] * n_leaves,
+                            {"reversed_edges": c["f64_reversed"], "card_f32": c["f32"]}),
+               card_f32_vs_f64_max_leaf_err=max(leaf_errors(c["f32"][1], c["f64"][1])),
+               card_s=card["seconds"], cpu_s=cpu["seconds"])
+    if "f32" in h:
+        cpu_errs = leaf_errors(h["f32"][1], h["f64"][1])
+        limits = [max(GNN_F32_GRAD_TOL, 10 * e) for e in cpu_errs]
+        out["f32"] = hold_gnn(cfg, "f32", c["f32"], h["f32"], limits,
+                              {"reversed_edges": c["f32_reversed"]})
+        out["f32"].update(cpu_f32_vs_f64_max_leaf_err=max(cpu_errs),
+                          leaf_limits_above_tol=sum(lim > GNN_F32_GRAD_TOL for lim in limits))
+    return out
+
+
+def hold_adamw(params, opt, grads, device) -> float:
+    """AdamW on the card and on the CPU from the same parameters, state and
+    gradients: every new parameter and moment within ``GNN_ADAMW_TOL``.
+    Returns the largest difference."""
+    import torch
+
+    from repro_torch.optim import adamw
+    from repro_torch.optim.tree import tree_leaves, tree_map
+
+    cpu = lambda t: t.detach().cpu()
+    on_card = adamw.update(tree_map(lambda g: g.to(device), grads), opt, params,
+                           GNN_LR, weight_decay=0.0)
+    on_cpu = adamw.update(grads, adamw.AdamWState(cpu(opt.step), tree_map(cpu, opt.mu),
+                                                  tree_map(cpu, opt.nu)),
+                          tree_map(cpu, params), GNN_LR, weight_decay=0.0)
+    worst = 0.0
+    for tree_card, tree_cpu in zip((on_card[0], on_card[1].mu, on_card[1].nu),
+                                   (on_cpu[0], on_cpu[1].mu, on_cpu[1].nu)):
+        for a, b in zip(tree_leaves(tree_card), tree_leaves(tree_cpu)):
+            worst = max(worst, max_abs_err(a.cpu(), b))
+    if worst > GNN_ADAMW_TOL or int(on_card[1].step) != int(on_cpu[1].step):
+        raise AssertionError(f"AdamW on the card and the CPU differ by {worst}")
+    return worst
+
+
+def check_sampled_edges(view, sub, rng, k: int = 20) -> int:
+    """``k`` sampled edges, each a real edge of ``view``: the message
+    v -> u of a block edge (src, dst) runs along the stored edge u -> v."""
+    import numpy as np
+
+    src, dst = sub.merged_edges()
+    for e in rng.choice(len(src), size=min(k, len(src)), replace=False):
+        u, v = int(sub.nodes[dst[e]]), int(sub.nodes[src[e]])
+        if v not in set(view.scan(u).tolist()):
+            raise AssertionError(f"sampled edge {u} -> {v} is not in the pinned view")
+    return min(k, len(src))
+
+
+def in_background(fn, name: str):
+    """Start ``fn()`` on a thread; returns a ``join()`` that gives
+    ``(result, seconds)`` or raises what ``fn`` raised."""
+    box = {}
+
+    def body():
+        t0 = time.perf_counter()
+        try:
+            box["out"] = fn()
+        except BaseException as exc:  # re-raised by join()
+            box["exc"] = exc
+        box["s"] = time.perf_counter() - t0
+
+    t = threading.Thread(target=body, name=name, daemon=True)
+    t.start()
+
+    def join():
+        t.join(timeout=JOIN_S)
+        if t.is_alive():
+            raise AssertionError(f"{name} did not finish in {JOIN_S} s")
+        if "exc" in box:
+            raise box["exc"]
+        return box["out"], box["s"]
+
+    return join
+
+
+def phase_gnn_train(store, seed, device) -> int:
+    """Phase 5g on the main store: gin-tu trains for ``GNN_STEPS`` steps on
+    minibatches sampled from pinned views while a writer thread commits,
+    with the features on the card.  Then step 0 and one step each of the
+    other three GNNs on step 0's batch against the CPU route, which runs on
+    a host thread while the card side checks the checkpoint and the store.
+    Returns the allocator's peak before the phase (the phase resets it)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.data.pipeline import GraphUpdateStream
+    from repro_torch.graph.sampler import NeighborSampler, pad_subgraph
+    from repro_torch.models import gnn as G
+    from repro_torch.optim import adamw
+    from repro_torch.optim.tree import tree_leaves, tree_map
+    from repro_torch.train.step import make_gnn_train_step
+
+    if store.write_pipeline is not None:
+        raise AssertionError("a write pipeline is still attached")
+    cell = next(c for c in GNN_SHAPES if c.name == "minibatch_lg").params
+    n_seeds, fanouts, d_feat = GNN_SEEDS, GNN_FANOUTS, GNN_D_FEAT
+    max_n = n_seeds * (1 + fanouts[0] + fanouts[0] * fanouts[1])
+    max_e = n_seeds * (fanouts[0] + fanouts[0] * fanouts[1])
+    n = store.n_vertices
+    prior_peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    gen = torch.Generator(device=device).manual_seed(seed + 30)
+
+    def tables():  # features on the card; labels a linear threshold of them
+        feat = torch.randn((n, d_feat), generator=gen, device=device)
+        return feat, (feat @ torch.randn(d_feat, generator=gen, device=device) > 0).int()
+
+    (feat_table, label_table), table_s = wall(tables, device)
+    cfg = gnn_config(GNN_ARCH)
+    params = G.init_gnn(cfg, gen, d_feat, device=device)
+    opt = adamw.init(params)
+    params0, opt0 = params, opt  # the update makes new tensors: these stay step 0's
+    step_fn = make_gnn_train_step(cfg, n_nodes=max_n, lr=GNN_LR)
+    rng = np.random.default_rng(seed + 31)
+
+    stop, write_errors, writes = threading.Event(), [], [0]
+
+    def writer():
+        stream = GraphUpdateStream(n, batch=128, seed=42)
+        try:
+            while not stop.is_set():
+                u = stream[writes[0]]
+                store.insert_edges(u["insert"])
+                store.delete_edges(u["delete"])
+                writes[0] += 1
+                time.sleep(0.002)
+        except Exception as exc:  # re-raised on the main thread
+            write_errors.append(exc)
+
+    # the timed steps: every step but the profiled one, without step 0's
+    # sampled-edge check (the CPU route runs after the loop)
+    profiled, check_s, profiled_iter_s = GNN_STEPS // 2, 0.0, 0.0
+    commits0 = store.stats["commits"]
+    w = threading.Thread(target=writer, name="gnn writer", daemon=True)
+    losses, parts, sizes, checks = [], {"sample": [], "gather": [], "step": []}, [], {}
+    t_loop = time.perf_counter()
+    w.start()
+    try:
+        for it in range(GNN_STEPS):
+            t0 = time.perf_counter()
+            with store.read_view() as view:
+                sampler = NeighborSampler(view.scan, fanouts=list(fanouts), seed=seed * 1000 + it)
+                sub = sampler.sample(rng.choice(n, n_seeds, replace=False).astype(np.int64))
+                nodes, src, dst, nmask, emask = pad_subgraph(sub, max_n, max_e)
+                if it == 0:
+                    tc = time.perf_counter()
+                    checks["sampled_edges_checked"] = check_sampled_edges(view, sub, rng)
+                    check_s = time.perf_counter() - tc
+            sample_s = time.perf_counter() - t0 - (check_s if it == 0 else 0.0)
+            sizes.append((sub.n_nodes, len(sub.merged_edges()[0])))
+
+            def gather():
+                idx = torch.from_numpy(nodes).to(device)
+                return {"feats": feat_table[idx] * torch.from_numpy(nmask).to(device)[:, None],
+                        "labels": label_table[idx], "src": torch.from_numpy(src).to(device),
+                        "dst": torch.from_numpy(dst).to(device),
+                        "emask": torch.from_numpy(emask).to(device),
+                        "lmask": (torch.arange(max_n, device=device) < sub.n_seeds).float()}
+
+            batch, gather_s = wall(gather, device)
+            if it == 0:
+                first = batch
+            run = lambda: step_fn(params, opt, batch["feats"], batch["src"], batch["dst"],
+                                  batch["emask"], batch["labels"], batch["lmask"])
+            if it == profiled:
+                out = []
+                busy_ms, prof_ms = profiled_step(lambda: out.append(run()), device)
+                params, opt, metrics = out[0]
+                profiled_iter_s = time.perf_counter() - t0  # the profiler's set-up included
+            else:
+                (params, opt, metrics), step_s = wall(run, device)
+                for part, secs in zip(parts, (sample_s, gather_s, step_s)):
+                    parts[part].append(secs)
+            losses.append(float(metrics["loss"]))
+    finally:
+        stop.set()
+        w.join(timeout=JOIN_S)
+    loop_s = time.perf_counter() - t_loop
+    if w.is_alive():
+        raise AssertionError("the GNN writer did not stop")
+    if write_errors:
+        raise write_errors[0]
+    commits = store.stats["commits"] - commits0
+    timed_s = sum(sum(v) for v in parts.values())
+    _, quiet_s = wall(run, device)  # the last step again, no writer holding the GIL
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite GNN loss: {losses}")
+    k = min(5, GNN_STEPS // 2)
+    if not np.mean(losses[-k:]) < np.mean(losses[:k]):
+        raise AssertionError(f"gin-tu did not learn: {losses}")
+
+    # step 0 of gin-tu and one step each of the other three on step 0's
+    # batch: the card side now, the CPU route on host copies in the background
+    models = {GNN_ARCH: (cfg, params0)}
+    others = {}
+    for arch in GNN_OTHER:
+        ocfg = gnn_config(arch)
+        oparams = G.init_gnn(ocfg, gen, d_feat, device=device)
+        models[arch] = (ocfg, oparams)
+        ostep = make_gnn_train_step(ocfg, n_nodes=max_n, lr=GNN_LR)
+        (_, _, om), ostep_s = wall(lambda: ostep(
+            oparams, adamw.init(oparams), first["feats"], first["src"], first["dst"],
+            first["emask"], first["labels"], first["lmask"]), device)
+        if not math.isfinite(float(om["loss"])):
+            raise AssertionError(f"{arch}: non-finite loss")
+        others[arch] = dict(step_s=ostep_s, flops=gnn_flops(ocfg, max_n, max_e, d_feat))
+    card = {arch: gnn_card_routes(c, p, first, max_n, device, f32_fault=arch == GNN_ARCH)
+            for arch, (c, p) in models.items()}
+    def host(t):
+        return t.detach().cpu()
+
+    first_cpu = {k: host(t) for k, t in first.items()}
+    cpu_params = {arch: (c, tree_map(host, p)) for arch, (c, p) in models.items()}
+    join_cpu = in_background(lambda: {
+        arch: gnn_cpu_routes(c, p, first_cpu, max_n, f32=arch == GNN_ARCH)
+        for arch, (c, p) in cpu_params.items()}, "gnn CPU route")
+    t_beside = time.perf_counter()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        saver = ckpt.AsyncCheckpointer(tmp)
+        _, save_s = wall(lambda: (saver.save(GNN_STEPS - 1, (params, opt)), saver.wait()),
+                         device)
+        (p_back, o_back), meta = ckpt.restore(tmp, (params, opt))
+    same = [torch.equal(a, b) for a, b in zip(
+        tree_leaves(p_back) + tree_leaves(o_back.mu) + tree_leaves(o_back.nu) + [o_back.step],
+        tree_leaves(params) + tree_leaves(opt.mu) + tree_leaves(opt.nu) + [opt.step])]
+    if not all(same) or meta["step"] != GNN_STEPS - 1:
+        raise AssertionError("the (params, AdamWState) checkpoint did not restore bitwise")
+    _, invariants_s = wall(store.check_invariants, device)
+    beside_s = time.perf_counter() - t_beside
+    cpu, cpu_route_s = join_cpu()
+
+    checks[GNN_ARCH] = hold_gnn_step(cfg, card[GNN_ARCH], cpu[GNN_ARCH])
+    cpu_loss0 = float(cpu[GNN_ARCH]["routes"]["f32"][0])
+    checks["loop_step0_loss_rel_err"] = abs(losses[0] - cpu_loss0) / abs(cpu_loss0)
+    if not checks["loop_step0_loss_rel_err"] <= GNN_LOSS_RTOL:
+        raise AssertionError(f"the loop's step 0 loss {losses[0]} vs CPU {cpu_loss0}")
+    checks["adamw_max_abs_err"] = hold_adamw(params0, opt0, cpu[GNN_ARCH]["routes"]["f32"][1],
+                                             device)
+    for arch in GNN_OTHER:
+        others[arch].update(hold_gnn_step(models[arch][0], card[arch], cpu[arch]))
+
+    med = {p: float(np.median(v)) for p, v in parts.items()}
+    flops = gnn_flops(cfg, max_n, max_e, d_feat)
+    nodes_e = np.array(sizes)
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+    del feat_table, label_table, first, batch, models, card
+    free_device(device)
+    emit("gnn_train", arch=GNN_ARCH, cell="minibatch_lg", graph_vertices=n,
+         published_graph=[cell["n_nodes"], cell["n_edges"]], seeds=n_seeds,
+         fanouts=fanouts, d_feat=d_feat, max_nodes=max_n, max_edges=max_e, steps=GNN_STEPS,
+         lr=GNN_LR, losses=losses, table_s=table_s, median_s=med,
+         step_without_writer_s=quiet_s, timed_steps=len(parts["step"]), timed_s=timed_s,
+         steps_per_s=len(parts["step"]) / timed_s,
+         seeds_per_s=len(parts["step"]) * n_seeds / timed_s, loop_s=loop_s,
+         profiled_iter_s=profiled_iter_s, sampled_edges_check_s=check_s,
+         sampled_nodes=[int(nodes_e[:, 0].min()), float(nodes_e[:, 0].mean()),
+                        int(nodes_e[:, 0].max())],
+         sampled_edges=[int(nodes_e[:, 1].min()), float(nodes_e[:, 1].mean()),
+                        int(nodes_e[:, 1].max())],
+         commits=commits, commits_per_s=commits / loop_s, writer_batches=writes[0],
+         profiled_step_ms=prof_ms, device_busy_ms=busy_ms,
+         device_idle_share=None if busy_ms is None else 1 - busy_ms / prof_ms,
+         step_flops=flops, step_tflops_per_s=flops / med["step"] / 1e12,
+         f32_peak_share=flops / med["step"] / CUDA_CORE_OPS_PER_S,
+         f32_peak_share_without_writer=flops / quiet_s / CUDA_CORE_OPS_PER_S,
+         checks=checks, checkpoint_save_s=save_s, check_invariants_s=invariants_s,
+         cpu_route_s=cpu_route_s, beside_cpu_route_s=beside_s,
+         other_models=others, peak_allocated_bytes=peak)
+    return prior_peak
+
+
 def phase_durability(seed, device) -> None:
     """Phase 5b: WAL, checkpoint and recovery of a tiered store on the
     card; the recovered view held against the live one and, entry point
@@ -2153,6 +2592,7 @@ PATH_KERNELS = {
     "readers": ("leaf_search", "leaf_scan_reduce"),
     "shard_plane": ("leaf_spmm",),
     "write_side": ("leaf_search", "leaf_scan_reduce"),
+    "gnn_train": (),  # segment ops are torch ops: no hand kernel on this path
     "durability": ("leaf_search", "leaf_scan_reduce", "leaf_spmm", "intersect_count"),
     "triangles": ("intersect_count",),
     "lm_serve": ("flash_decode",),
@@ -2191,6 +2631,8 @@ def run(seed: int, device) -> dict:
     counted("readers", launches, phase_readers, store, seed, device)
     prior_peak = counted("shard_plane", launches, phase_shard_plane, store, seed, device)
     counted("write_side", launches, phase_write_side, store, seed, device)
+    prior_peak = max(prior_peak, counted("gnn_train", launches, phase_gnn_train, store,
+                                         seed, device))
     del store, r0, ops0, first
     counted("durability", launches, phase_durability, seed, device)
     tc_store, tc_info = counted("triangles", launches, phase_triangles, TC_SCALE, seed, device)
@@ -2232,7 +2674,8 @@ def main(argv=None) -> int:
     emit("config", scale=SCALE, tc_scale=TC_SCALE, seed=args.seed,
          partition_size=64, B=512, edge_factor=16, spmm_d=D_FEATURES, lm=LM_ARCH,
          decode_batch=DECODE_BATCH, decode_seq=DECODE_SEQ, serve_batches=SERVE_BATCHES,
-         n_candidates=N_CANDIDATES)
+         n_candidates=N_CANDIDATES, gnn=GNN_ARCH, gnn_seeds=GNN_SEEDS,
+         gnn_fanouts=GNN_FANOUTS, gnn_d_feat=GNN_D_FEAT, gnn_steps=GNN_STEPS)
     kernels = run(args.seed, device)
     order = list(KERNELS)
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -8,7 +8,8 @@ Layout (one directory per step):
 
 The file format is the reference's (:mod:`repro.checkpoint.manager`) byte
 for byte: the same keys (``"a/b"`` for dict entries, ``"0"`` for list and
-tuple positions, dict keys sorted), the same key order in ``meta.json``,
+tuple positions, ``".mu"`` for a ``NamedTuple``'s field ``mu``, dict
+keys sorted), the same key order in ``meta.json``,
 and bf16/fp8 leaves widened to f32 — so either package restores what the
 other saved.  Leaves are torch tensors or numpy arrays (or Python scalars);
 tensors are written from a detached host copy.
@@ -37,9 +38,23 @@ _NARROW_NAMES = ("bfloat16", "float8_e4m3fn", "float8_e5m2")
 _NARROW_TORCH = (torch.bfloat16, torch.float8_e4m3fn, torch.float8_e5m2)
 
 
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(type(tree), "_fields")
+
+
+def _child_keys(tree) -> List[str]:
+    """The path key of each entry of a list or tuple, in order: ``".f"`` for
+    a ``NamedTuple``'s field ``f`` (the ``str`` of JAX's ``GetAttrKey``),
+    else the index."""
+    if _is_namedtuple(tree):
+        return ["." + f for f in type(tree)._fields]
+    return [str(i) for i in range(len(tree))]
+
+
 def _walk(tree, path: Tuple[str, ...] = ()) -> List[Tuple[Tuple[str, ...], Any]]:
     """``[(path, leaf)]`` in JAX's flatten order: dict keys sorted, list and
-    tuple entries by index, ``None`` an empty subtree."""
+    tuple entries (``NamedTuple`` fields too) in order, ``None`` an empty
+    subtree."""
     if tree is None:
         return []
     if isinstance(tree, dict):
@@ -49,8 +64,8 @@ def _walk(tree, path: Tuple[str, ...] = ()) -> List[Tuple[Tuple[str, ...], Any]]
         return out
     if isinstance(tree, (list, tuple)):
         out = []
-        for i, sub in enumerate(tree):
-            out.extend(_walk(sub, path + (str(i),)))
+        for key, sub in zip(_child_keys(tree), tree):
+            out.extend(_walk(sub, path + (key,)))
         return out
     return [(path, tree)]
 
@@ -63,7 +78,10 @@ def _rebuild(template, fn: Callable[[Tuple[str, ...], Any], Any],
     if isinstance(template, dict):
         return {k: _rebuild(v, fn, path + (str(k),)) for k, v in template.items()}
     if isinstance(template, (list, tuple)):
-        items = [_rebuild(v, fn, path + (str(i),)) for i, v in enumerate(template)]
+        items = [_rebuild(v, fn, path + (key,))
+                 for key, v in zip(_child_keys(template), template)]
+        if _is_namedtuple(template):
+            return type(template)(*items)
         return type(template)(items) if isinstance(template, tuple) else items
     return fn(path, template)
 
