@@ -7,7 +7,8 @@ paths once on one CUDA card.
 Deployment: the paper's own settings, |P|=64 and B=512 (configs/rapidstore,
 paper section 6.5), ``high_threshold`` at its default, on a directed
 Graph500 R-MAT graph (a=0.57, b=0.19, c=0.19) of scale 22 and edge factor
-16: 4,194,304 vertices and about 67M edges, made from ``--seed``.  Triangle
+16: 4,194,304 vertices and about 67M edges, made from ``--seed`` (the
+draws on the card, ``rmat_edges_torch``).  Triangle
 counting runs on an undirected simple store of scale 18, durability on a
 directed tiered store of scale 18.
 
@@ -85,7 +86,8 @@ script exits non-zero without the last line):
              last 5 steps' mean below the first 5's).  After the loop:
              one step each of gcn-cora, gatedgcn and pna at their
              published configs on step 0's batch; step 0's loss and every
-             gradient leaf of all four against the CPU route, which runs
+             gradient leaf of all four (gatedgcn cut to 4 layers,
+             ``GNN_CHECK_LAYERS``) against the CPU route, which runs
              on a host thread beside the checkpoint of (params, AdamW
              state), restored bitwise, and ``check_invariants`` (float64:
              loss rtol 1e-4, each leaf within ``GNN_F64_GRAD_TOL`` of its
@@ -112,7 +114,8 @@ script exits non-zero without the last line):
              intersect of every tile pair's [Ba, Bb] ids is too slow at
              this scale)
 6. triangles triangle_count_view on the card, cold then warm, ==
-             triangle_count_fast on host; then, uncounted, the warm call's
+             triangle_count_fast on host (in a child process beside phases
+             7-12, joined after them); then, uncounted, the warm call's
              split: host enumeration of the tile pairs, index uploads, the
              kernel's summed device time, the rest
 7. model kernels  flash_decode and embedding_bag against their plain
@@ -136,16 +139,48 @@ script exits non-zero without the last line):
              h % KV (a planted fault) must fall outside; then 8 greedy
              tokens, timed, with 48 flash_decode launches per step, and one
              more under the profiler for the device's idle share
+8c.          granite-moe-3b-a800m at full width: the serve launcher's
+             defaults (f32, batch 4, prompt 32, 32 decode tokens, 32
+             flash_decode launches a step), one more step with each launch
+             held against the plain version and the logits against the
+             plain route's (3e-4), then ``make_prefill_step`` on the prompt
+             against decode's logits after its last token (3e-4)
 9. recsys_serve  BST at its published config, the 4,194,304 x 32 item
              table on the card: forward at serve_p99 (512) and serve_bulk
              (262,144), user_tower + retrieval_scores at retrieval_cand
              (1,000,000 candidates), each against the plain route
-10. the ``kernels`` line, then the ``ok`` line.
+10. lm_prefill  prefill_32k on granite in bf16 (32,768 tokens, batch 1,
+             attn_chunk 1,024): seconds, tokens/s, peak bytes; logits
+             finite, the last position's within 0.1 of their largest
+             magnitude of ``forward``'s with attn_chunk 2,048
+11. lm_train granite at full width, f32 weights and compute: 10 steps of
+             ``make_lm_train_step`` (warmup 10, total 20) on train_4k
+             (batch 2, ``SyntheticTokens``), the last under the profiler
+             (device activity only); step 0's loss within 0.5 of ln V, step
+             9's below it, grad norms and every leaf finite; median step
+             seconds, tokens/s, model FLOPs (``train_flops``) over 67
+             TFLOP/s, busy and idle share, peak bytes.  Then the model cut
+             to 2 layers, step 0 on 1,024 tokens, card against CPU in
+             float64 (the CPU route on a host thread beside the steps):
+             loss within ``LM_F64_LOSS_RTOL``, every leaf within
+             ``LM_F64_GRAD_TOL`` of its largest magnitude, the card's f32
+             outside.  Then ``launch/train.py --smoke`` for 6 steps with a
+             checkpoint every 3 and ``--resume`` to 8: the checkpoint
+             bitwise, the resumed run at step 6, its first loss the loss of
+             the saved parameters (1e-6)
+12. recsys_train  BST at train_batch (65,536 rows, ``RecsysBatches``), 10
+             steps of ``make_bst_train_step``, one embedding_bag launch a
+             step; step 0's gradients on 512 rows, card against CPU in
+             float64 (the item table f32, the kernel's type: its leaf
+             within ``BST_TABLE_GRAD_TOL``, the rest within
+             ``BST_F64_GRAD_TOL``, the card's f32 outside); the backward's
+             ``index_add_`` into the [4,194,304, 32] gradient timed alone
+13. the ``kernels`` line, then the ``ok`` line.
 
 The launch counters are set to 0 just before each of phases 3-6, 5s, 5a,
-5g, 5b, 8 and 9 and read just after it (5g launches no hand kernel: its
-segment ops are torch ops); every kernel a phase calls must have
-launched in it.  The ``kernels`` line's ``launches`` is the count on each
+5g, 5b, 8-12 and read just after it (5g, 10 and 11 launch no hand kernel:
+segment ops, flash attention and MoE are torch ops); every kernel a phase
+calls must have launched in it.  The ``kernels`` line's ``launches`` is the count on each
 kernel's own path (phase 3 for the graph kernels, 8 for flash_decode, 9 for
 embedding_bag), and ``launches_by_path`` holds every phase's.  The
 comparisons of phases 2 and 7 do not count.  The scale cuts:
@@ -158,7 +193,9 @@ the host), twice here; its SpMM width is 16 and its intersect pairs
 
 The GNN phase's cut: the graph is the scale-22 R-MAT store, not
 minibatch_lg's Reddit graph (232,965 x 114.6M); 20 steps, not the
-example's 300.
+example's 300.  The LM cuts: prefill_32k's batch 32 -> 1 and train_4k's
+256 -> 2, to fit one card; the launcher runs at ``--smoke`` (a full-width
+checkpoint of f32 weights and bf16 moments is 26.4 GB of disk a save).
 
 ``bound_ms`` counts the bytes the function needs on this run's data, not
 the whole tiles: a tile's live ids are a sorted prefix followed by
@@ -210,10 +247,30 @@ DECODE_BATCH = 4  # decode_32k's global batch is 128: cut to fit one card
 DECODE_STEPS = 8  # greedy tokens after the cache is filled to DECODE_SEQ - 8
 SERVE_BATCHES = (512, 262144)  # serve_p99, serve_bulk
 N_CANDIDATES = 1_000_000  # retrieval_cand
+GRANITE = "granite-moe-3b-a800m"  # the LM whose training fits one card
+SERVE_BATCH, SERVE_PROMPT, SERVE_DECODE, SERVE_MAX_SEQ = 4, 32, 32, 128  # launch/serve.py's
+PREFILL_SEQ, PREFILL_BATCH = 32768, 1  # LM_SHAPES' prefill_32k; its batch 32 cut to 1
+PREFILL_CHUNK, PREFILL_CHECK_CHUNK = 1024, 2048  # attn_chunk; the chunk-invariance check's
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4096, 2, 10  # LM_SHAPES' train_4k; batch 256 cut to 2
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_SEQ = 2, 1024  # card vs CPU in float64: layers, tokens
+# float64 gradient leaves of the cut granite, card against CPU, of their
+# largest magnitude (every term float64 on both sides); the card's f32
+# route is the control that must fall outside
+LM_F64_GRAD_TOL, LM_F64_LOSS_RTOL = 1e-9, 1e-12
+BST_TRAIN_BATCH, BST_TRAIN_STEPS = 65536, 10  # RECSYS_SHAPES' train_batch
+BST_CHECK_BATCH = 512  # rows of step 0's card vs CPU gradients
+# BST float64 gradients, card against CPU: the item table stays f32 (the
+# kernel's type), so its gradient adds f32 rows (atomics on the card)
+BST_F64_GRAD_TOL, BST_TABLE_GRAD_TOL, BST_F64_LOSS_RTOL = 1e-9, 1e-5, 1e-12
 GNN_ARCH, GNN_OTHER = "gin-tu", ("gcn-cora", "gatedgcn", "pna")
 GNN_SEEDS, GNN_FANOUTS, GNN_D_FEAT = 1024, (15, 10), 602  # GNN_SHAPES' minibatch_lg
 GNN_STEPS, GNN_LR = 20, 3e-3  # the example's lr; 20 steps, not its 300
 GNN_LOSS_RTOL, GNN_ADAMW_TOL = 1e-4, 1e-6
+# layers of a GNN in the card-vs-CPU gradient check where fewer than its
+# published config's: gatedgcn's 16 layers cost the CPU route 26-29 s in
+# float64, on the phase's critical path, so its check runs 4 (its one train
+# step stays at 16); the script must finish in 1,100 s with the LM phases
+GNN_CHECK_LAYERS = {"gatedgcn": 4}
 # float64 gradient leaves, card against CPU, of their largest magnitude, by
 # model kind.  GIN and GatedGCN compute every term in float64 (the H100 and
 # its host agree to 2.7e-15 at most).  GCN's rsqrt and PNA's log1p of the
@@ -436,10 +493,10 @@ def phase_build() -> None:
 def build_store(scale: int, seed: int, device, undirected: bool = False, leaf_tiers=None):
     from repro_torch.configs import CONFIG
     from repro_torch.core import RapidStore
-    from repro_torch.graph import rmat_edges
+    from repro_torch.graph import rmat_edges_torch
 
     t0 = time.perf_counter()
-    edges = rmat_edges(scale, 16 << scale, seed=seed)
+    edges = rmat_edges_torch(scale, 16 << scale, seed, device)
     t1 = time.perf_counter()
     store = RapidStore.from_edges(
         1 << scale, edges, undirected=undirected,
@@ -1532,12 +1589,12 @@ def gnn_flops(cfg, n_nodes: int, n_edges: int, d_feat: int) -> float:
 
 def leaf_errors(got, want) -> list:
     """Per leaf (``tree_leaves`` order): largest |got - want| over the
-    leaf's largest |want|, in float64 on the host."""
+    leaf's largest |want|, in float64 on ``got``'s device."""
     from repro_torch.optim.tree import tree_leaves
 
     out = []
     for g, w in zip(tree_leaves(got), tree_leaves(want)):
-        g, w = g.detach().cpu().double(), w.detach().cpu().double()
+        g, w = g.detach().double(), w.detach().to(g.device).double()
         out.append(float((g - w).abs().max() / max(float(w.abs().max()), 1e-30)))
     return out
 
@@ -1581,15 +1638,16 @@ def gnn_cpu_routes(cfg, params, batch, n_nodes: int, f32: bool) -> dict:
     return dict(routes=out, seconds=secs)
 
 
-def hold_gnn(cfg, what: str, got, want, limits, controls: dict) -> dict:
+def hold_grads(cfg, what: str, got, want, limits, controls: dict,
+               loss_rtol: float = GNN_LOSS_RTOL) -> dict:
     """``got`` (loss, grads) against ``want``: the loss within
-    ``GNN_LOSS_RTOL``, every gradient leaf within its limit of its largest
+    ``loss_rtol``, every gradient leaf within its limit of its largest
     magnitude.  Each of ``controls`` (name -> (loss, grads)) must put some
     leaf outside its limit.  Returns the figures."""
     from repro_torch.optim.tree import tree_leaves
 
     loss_err = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
-    if not math.isfinite(float(got[0])) or loss_err > GNN_LOSS_RTOL:
+    if not math.isfinite(float(got[0])) or loss_err > loss_rtol:
         raise AssertionError(f"{cfg.name} {what}: card loss {float(got[0])} "
                              f"vs CPU {float(want[0])}")
     errs = leaf_errors(got[1], want[1])
@@ -1619,14 +1677,14 @@ def hold_gnn_step(cfg, card: dict, cpu: dict) -> dict:
     c, h = card["routes"], cpu["routes"]
     n_leaves = len(tree_leaves(h["f64"][1]))
     out = dict(loss=float(c["f32"][0]), leaves=n_leaves,
-               f64=hold_gnn(cfg, "f64", c["f64"], h["f64"], [GNN_F64_GRAD_TOL[cfg.kind]] * n_leaves,
+               f64=hold_grads(cfg, "f64", c["f64"], h["f64"], [GNN_F64_GRAD_TOL[cfg.kind]] * n_leaves,
                             {"reversed_edges": c["f64_reversed"], "card_f32": c["f32"]}),
                card_f32_vs_f64_max_leaf_err=max(leaf_errors(c["f32"][1], c["f64"][1])),
                card_s=card["seconds"], cpu_s=cpu["seconds"])
     if "f32" in h:
         cpu_errs = leaf_errors(h["f32"][1], h["f64"][1])
         limits = [max(GNN_F32_GRAD_TOL, 10 * e) for e in cpu_errs]
-        out["f32"] = hold_gnn(cfg, "f32", c["f32"], h["f32"], limits,
+        out["f32"] = hold_grads(cfg, "f32", c["f32"], h["f32"], limits,
                               {"reversed_edges": c["f32_reversed"]})
         out["f32"].update(cpu_f32_vs_f64_max_leaf_err=max(cpu_errs),
                           leaf_limits_above_tol=sum(lim > GNN_F32_GRAD_TOL for lim in limits))
@@ -1705,6 +1763,7 @@ def phase_gnn_train(store, seed, device) -> int:
     other three GNNs on step 0's batch against the CPU route, which runs on
     a host thread while the card side checks the checkpoint and the store.
     Returns the allocator's peak before the phase (the phase resets it)."""
+    import dataclasses
     import tempfile
 
     import numpy as np
@@ -1794,7 +1853,8 @@ def phase_gnn_train(store, seed, device) -> int:
                                   batch["emask"], batch["labels"], batch["lmask"])
             if it == profiled:
                 out = []
-                busy_ms, prof_ms = profiled_step(lambda: out.append(run()), device)
+                busy_ms, prof_ms = profiled_step(lambda: out.append(run()), device,
+                                                 host_ops=False)
                 params, opt, metrics = out[0]
                 profiled_iter_s = time.perf_counter() - t0  # the profiler's set-up included
             else:
@@ -1827,6 +1887,12 @@ def phase_gnn_train(store, seed, device) -> int:
         ocfg = gnn_config(arch)
         oparams = G.init_gnn(ocfg, gen, d_feat, device=device)
         models[arch] = (ocfg, oparams)
+        if arch in GNN_CHECK_LAYERS:  # the checked model cut in depth; the step below is whole
+            # drawn from a generator of its own, so the models after it keep
+            # the parameters their limits were measured on
+            ccfg = dataclasses.replace(ocfg, n_layers=GNN_CHECK_LAYERS[arch])
+            cgen = torch.Generator(device=device).manual_seed(seed + 13)
+            models[arch] = (ccfg, G.init_gnn(ccfg, cgen, d_feat, device=device))
         ostep = make_gnn_train_step(ocfg, n_nodes=max_n, lr=GNN_LR)
         (_, _, om), ostep_s = wall(lambda: ostep(
             oparams, adamw.init(oparams), first["feats"], first["src"], first["dst"],
@@ -2081,10 +2147,53 @@ def hold(want: dict, got: dict, names) -> dict:
     return errs
 
 
+class HostTriangles:
+    """``triangle_count_fast`` on a CSR's arrays in a child process, so that
+    the host count (about a minute at scale 18) runs beside the phases
+    after it.  ``result()`` waits for the child and returns (count,
+    seconds); ``close()`` kills a child still running and removes its
+    files."""
+
+    CODE = ("import json, sys, time, types; import numpy as np; "
+            "sys.path.insert(0, sys.argv[1]); "
+            "from repro_torch.core.analytics import triangle_count_fast; "
+            "csr = types.SimpleNamespace(offsets=np.load(sys.argv[2]), "
+            "indices=np.load(sys.argv[3])); t0 = time.perf_counter(); "
+            "n = triangle_count_fast(csr); "
+            "print(json.dumps([int(n), time.perf_counter() - t0]))")
+
+    def __init__(self, csr):
+        import tempfile
+
+        import numpy as np
+
+        self._dir = tempfile.TemporaryDirectory()
+        paths = [str(Path(self._dir.name) / f) for f in ("offsets.npy", "indices.npy")]
+        np.save(paths[0], np.asarray(csr.offsets))
+        np.save(paths[1], np.asarray(csr.indices))
+        self._proc = subprocess.Popen(
+            [sys.executable, "-c", self.CODE, str(ROOT / "src"), *paths],
+            stdout=subprocess.PIPE, text=True)
+
+    def result(self) -> tuple:
+        out, _ = self._proc.communicate(timeout=JOIN_S)
+        if self._proc.returncode:
+            raise RuntimeError(f"the host triangle count exited {self._proc.returncode}")
+        count, secs = json.loads(out)
+        return count, secs
+
+    def close(self) -> None:
+        if self._proc.poll() is None:
+            self._proc.kill()
+            self._proc.wait()
+        self._dir.cleanup()
+
+
 def phase_triangles(scale: int, seed: int, device):
     """Phase 6's counted part: triangle_count_view on a cold view, then on
-    the warm view; returns the store and what was measured."""
-    from repro_torch.core.analytics import triangle_count_fast, triangle_count_view
+    the warm view; returns the store, what was measured, and the host
+    count started in a child process (``hold_host_triangles`` joins it)."""
+    from repro_torch.core.analytics import triangle_count_view
     from repro_torch.kernels.intersect import intersect_count
 
     store, info = build_store(scale, seed, device, undirected=True)
@@ -2093,16 +2202,24 @@ def phase_triangles(scale: int, seed: int, device):
         tc, dev_s = wall(lambda: triangle_count_view(view), device)
         launches = intersect_count.launches - n0
         tc_warm, warm_s = wall(lambda: triangle_count_view(view), device)
-        t0 = time.perf_counter()
-        want = triangle_count_fast(view.to_csr())
-        host_s = time.perf_counter() - t0
+        host = HostTriangles(view.to_csr())
         n_leaves = view.to_leaf_blocks_device().n_blocks
-    if tc != want or tc_warm != want:
-        raise AssertionError(f"triangle_count_view {tc}, {tc_warm} != "
-                             f"triangle_count_fast {want}")
+    if tc != tc_warm:
+        host.close()
+        raise AssertionError(f"triangle_count_view: cold {tc} != warm {tc_warm}")
     return store, dict(scale=scale, **info, n_leaves=n_leaves, triangles=tc,
-                       device_s=dev_s, device_warm_s=warm_s, host_fast_s=host_s,
-                       launches_per_call=launches)
+                       device_s=dev_s, device_warm_s=warm_s,
+                       launches_per_call=launches), host
+
+
+def hold_host_triangles(host: HostTriangles, info: dict) -> None:
+    """Phase 6's host check, joined after the model phases:
+    ``triangle_count_fast`` on the same view's CSR equals the card's count."""
+    want, host_s = host.result()
+    if want != info["triangles"]:
+        raise AssertionError(f"triangle_count_view {info['triangles']} != "
+                             f"triangle_count_fast {want}")
+    emit("triangles_host", scale=info["scale"], triangles=want, host_fast_s=host_s)
 
 
 def triangle_split(store, info: dict, device) -> None:
@@ -2157,6 +2274,23 @@ def model_configs():
 
     get = registry.get_smoke_config if MODEL_SMOKE else registry.get_config
     return get(LM_ARCH), get("bst")
+
+
+def granite_config():
+    from repro_torch.configs import registry
+
+    return (registry.get_smoke_config if MODEL_SMOKE else registry.get_config)(GRANITE)
+
+
+def recsys_train_ids(cfg, i: int, seed: int):
+    """Batch ``i`` of ``RecsysBatches`` at ``BST_TRAIN_BATCH``: history and
+    target ids as the forward looks them up, [B * (seq_len + 1)] int32."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import RecsysBatches
+
+    b = RecsysBatches(cfg.n_items, BST_TRAIN_BATCH, cfg.seq_len, cfg.n_other_feats, seed=seed)[i]
+    return np.concatenate([b["hist"], b["target"][:, None]], axis=1).reshape(-1)
 
 
 def free_device(device) -> None:
@@ -2269,6 +2403,18 @@ def phase_model_kernels(seed: int, device) -> dict:
     cases["dh144"] = decode_case(q2, k2, v2, len2)
     cases["dh144_softcap"] = decode_case(q2, k2, v2, len2, softcap=50.0)
     del q2, k2, v2
+    # granite's serve path (lm_serve c): f32 K/V, dh 64, 3 query heads a KV
+    # head, the launcher's cache of 128 rows at the last step's length
+    gr = granite_config()
+    gk = torch.randn((SERVE_BATCH, SERVE_MAX_SEQ, gr.n_kv_heads, gr.d_head), generator=g,
+                     device=device)
+    gv = torch.randn(gk.shape, generator=g, device=device)
+    gq = torch.randn((SERVE_BATCH, gr.n_kv_heads, gr.n_heads // gr.n_kv_heads, gr.d_head),
+                     generator=g, device=device)
+    glen = torch.full((SERVE_BATCH,), SERVE_PROMPT + SERVE_DECODE, dtype=torch.int32,
+                      device=device)
+    cases["granite_serve"] = decode_case(gq, gk, gv, glen)
+    del gq, gk, gv
     p_ = cases["path"]
     out["flash_decode"] = dict(
         name="flash_decode", max_abs_err=max(c["max_abs_err"] for c in cases.values()),
@@ -2287,6 +2433,8 @@ def phase_model_kernels(seed: int, device) -> dict:
         "forward": (rng.integers(0, n_items, (bulk * (rec.seq_len + 1), 1)), None, "sum"),
         "user_tower": (rng.integers(0, n_items, (1, rec.seq_len)), None, "mean"),
         "retrieval": (rng.integers(0, n_items, (N_CANDIDATES, 1)), None, "sum"),
+        # recsys_train's forward: one RecsysBatches batch's history and targets
+        "train": (recsys_train_ids(rec, 0, seed)[:, None], None, "sum"),
         "weighted_padded": (rng.integers(0, n_items, (SERVE_BATCHES[0], rec.seq_len)),
                             rng.random((SERVE_BATCHES[0], rec.seq_len)).astype(np.float32),
                             "mean"),
@@ -2338,14 +2486,17 @@ def check_logits(got, want, rtol: float, atol: float, what: str) -> float:
     return max_abs_err(got, want)
 
 
-def profiled_step(fn, device) -> tuple:
+def profiled_step(fn, device, host_ops: bool = True) -> tuple:
     """``fn()`` once under the profiler: (the union of the device's activity
     intervals in ms, or None where the trace holds no device event, and the
-    step's wall time in ms, device drained)."""
+    step's wall time in ms, device drained).  Without ``host_ops`` the trace
+    holds the device's activity alone (a step of tens of thousands of
+    operators then costs the profiler less)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    acts = [ProfilerActivity.CPU] if host_ops or device.type != "cuda" else []
+    acts += [ProfilerActivity.CUDA] if device.type == "cuda" else []
     with profile(activities=acts) as prof:
         _, sec = wall(fn, device)
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
@@ -2358,6 +2509,24 @@ def profiled_step(fn, device) -> tuple:
             busy, lo = busy + hi - lo, a
         hi = max(hi, b)
     return (busy + hi - lo) / 1e3, sec * 1e3
+
+
+def checked_attn_fn(plain_attn, errs: list):
+    """The kernel route's ``attn_fn``, each launch held against its plain
+    version on the same inputs (f32 accumulation on both sides) at rtol
+    2e-4, atol 2e-5; each launch's largest error goes into ``errs``."""
+    import torch
+
+    from repro_torch.serve.decode import flash_attn_fn
+
+    def attn(q, k_cache, v_cache, pos, window, cap):
+        got = flash_attn_fn(q, k_cache, v_cache, pos, window, cap)
+        want = plain_attn(q, k_cache, v_cache, pos, window, cap)
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+        errs.append(max_abs_err(got, want))
+        return got
+
+    return attn
 
 
 def phase_lm_serve(seed: int, device) -> dict:
@@ -2414,16 +2583,7 @@ def phase_lm_serve(seed: int, device) -> dict:
     sync(device)
     setup_s = time.perf_counter() - t0
     launch_errs = []
-
-    def checked_attn(q, k_cache, v_cache, pos, window, cap):
-        """The kernel route, each launch held against its plain version on
-        the same inputs (f32 accumulation on both sides)."""
-        got = flash_attn_fn(q, k_cache, v_cache, pos, window, cap)
-        want = plain_attn(q, k_cache, v_cache, pos, window, cap)
-        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
-        launch_errs.append(max_abs_err(got, want))
-        return got
-
+    checked_attn = checked_attn_fn(plain_attn, launch_errs)
     step_k = make_decode_step(lm, torch.bfloat16, attn_fn=flash_attn_fn)
     tok = torch.from_numpy(np.random.default_rng(seed + 30).integers(
         0, lm.vocab, (DECODE_BATCH, 1), dtype=np.int32)).to(device)
@@ -2499,6 +2659,55 @@ def phase_lm_serve(seed: int, device) -> dict:
     emit("lm_serve_decode_32k", **report["decode_32k"])
     del params, cache
     free_device(device)
+    report["granite"] = serve_granite(seed, device, plain_attn)
+    return report
+
+
+def serve_granite(seed: int, device, plain_attn) -> dict:
+    """Phase 8 (c): granite at full width through the serve launcher's
+    defaults (f32), one more step with each ``flash_decode`` launch held
+    against the plain version and the logits against the plain route's, and
+    ``make_prefill_step`` on the same prompt against the logits that decode
+    gave after the prompt's last token (rtol = atol = 3e-4, the limit of the
+    reference's decode-vs-forward test)."""
+    import torch
+
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.serve.decode import make_decode_step, make_prefill_step
+
+    argv = ["--arch", GRANITE, "--device", device.type, "--seed", str(seed)]
+    n0 = flash_decode.launches
+    res, main_s = wall(lambda: serve_main(argv + (["--smoke"] if MODEL_SMOKE else [])), device)
+    main_launches = flash_decode.launches - n0
+    cfg, params, cache = res["cfg"], res["params"], res["cache"]
+    want_launches = (SERVE_PROMPT + SERVE_DECODE) * cfg.n_layers
+    if "flash_decode" in PATH_KERNELS["lm_serve"] and main_launches != want_launches:
+        raise AssertionError(f"granite serve: {main_launches} flash_decode launches, "
+                             f"want {want_launches}")
+    errs = []
+    last, pos = res["tokens"][:, -1:], res["pos"]
+    lp, tp, _ = make_decode_step(cfg, torch.float32, attn_fn=plain_attn)(params, cache, last, pos)
+    lc, tc, _ = make_decode_step(cfg, torch.float32, attn_fn=checked_attn_fn(plain_attn, errs))(
+        params, cache, last, pos)
+    err = check_logits(lc, lp, 3e-4, 3e-4, "granite serve f32")
+    if len(errs) != cfg.n_layers:
+        raise AssertionError(f"granite serve: {len(errs)} checked launches, want {cfg.n_layers}")
+    prefill = make_prefill_step(cfg, torch.float32)
+    pre, pre_s = wall(lambda: prefill(params, res["prompt"]), device)
+    pre_err = check_logits(pre, res["prompt_logits"], 3e-4, 3e-4, "granite prefill vs decode")
+    report = dict(config=cfg.name, seconds=main_s, tok_per_s=res["tok_per_s"],
+                  decode_s=res["seconds"], main_launches=main_launches,
+                  checked_launches=len(errs), launch_max_abs_err=max(errs),
+                  max_abs_err=err, tokens_equal=bool(torch.equal(tc, tp)),
+                  prefill_s=pre_s, prefill_max_abs_err=pre_err,
+                  logit_absmax=float(lp.abs().max()),
+                  param_bytes=sum(t.numel() * t.element_size() for t in
+                                  [params["embed"], params["final_norm"],
+                                   *params["layers"].values()]))
+    emit("lm_serve_granite", **report)
+    del res, params, cache
+    free_device(device)
     return report
 
 
@@ -2555,8 +2764,294 @@ def phase_recsys_serve(seed: int, device) -> dict:
     return report
 
 
+def peak_bytes(device):
+    import torch
+
+    return torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+
+
+def reset_peak(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def phase_lm_prefill(seed: int, device) -> dict:
+    """Phase 10: prefill_32k on granite at full width in bf16, batch 1,
+    attn_chunk 1,024: seconds, tokens/s, peak bytes; the last position's
+    logits finite and within 0.1 of their largest magnitude of ``forward``'s
+    on the same tokens and weights with attn_chunk 2,048."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.decode import make_prefill_step
+
+    cfg = granite_config()
+    free_device(device)
+    reset_peak(device)
+    gen = torch.Generator(device=device).manual_seed(seed + 50)
+    params = T.init_params(cfg, gen, dtype=torch.bfloat16, device=device)
+    toks = torch.from_numpy(np.random.default_rng(seed + 50).integers(
+        0, cfg.vocab, (PREFILL_BATCH, PREFILL_SEQ), dtype=np.int32)).to(device)
+    step = make_prefill_step(cfg, torch.bfloat16, attn_chunk=PREFILL_CHUNK)
+    last, sec = wall(lambda: step(params, toks), device)
+    peak = peak_bytes(device)
+
+    def check():
+        with torch.no_grad():
+            full = T.forward(cfg, params, toks, torch.bfloat16, remat=False,
+                             attn_chunk=PREFILL_CHECK_CHUNK)
+            return bool(torch.isfinite(full).all()), full[:, -1].clone()
+
+    (finite, want), check_s = wall(check, device)
+    if not finite or not bool(torch.isfinite(last).all()):
+        raise AssertionError("prefill_32k: non-finite logits")
+    limit = 0.1 * float(want.float().abs().max())
+    err = check_logits(last.float(), want.float(), 0.0, limit, "prefill_32k chunk 1024 vs 2048")
+    report = dict(config=cfg.name, batch=PREFILL_BATCH, seq=PREFILL_SEQ, attn_chunk=PREFILL_CHUNK,
+                  seconds=sec, tokens_per_s=PREFILL_BATCH * PREFILL_SEQ / sec,
+                  check_chunk=PREFILL_CHECK_CHUNK, check_s=check_s, max_abs_err=err,
+                  logits_limit=limit, peak_allocated_bytes=peak)
+    emit("lm_prefill", **report)
+    del params, toks, last, want
+    free_device(device)
+    return report
+
+
+def train_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one train step: 6 x active parameters x tokens, plus
+    causal attention's 2 B S^2 H dh a layer forward (QK^T and PV over half
+    the square) times 3 for the backward; the recompute of remat is not
+    counted."""
+    attn = 6.0 * batch * seq * seq * cfg.n_heads * cfg.d_head * cfg.n_layers
+    return 6.0 * cfg.n_active_params * batch * seq + attn
+
+
+def lm_check_grads(cfg, params, batch, dev, dtype):
+    """((loss, grads), seconds) of the LM loss at host ``params`` copied to
+    ``dev`` in ``dtype`` on ``batch`` (tokens, targets)."""
+    import torch
+
+    from repro_torch.optim.tree import tree_map
+    from repro_torch.train.step import lm_value_and_grad
+
+    p = tree_map(lambda t: t.to(dev, dtype), params)
+    toks, tgts = (torch.from_numpy(batch[k]).to(dev) for k in ("tokens", "targets"))
+    return wall(lambda: lm_value_and_grad(cfg, p, toks, tgts, compute_dtype=dtype), dev)
+
+
+def phase_lm_train(seed: int, device) -> dict:
+    """Phase 11: granite at full width trains ``TRAIN_STEPS`` steps of
+    train_4k (batch 2) in f32 through ``make_lm_train_step``; the same
+    model cut to 2 layers, card against CPU in float64; the launcher at
+    ``--smoke`` with a save and a resume."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.optim.tree import tree_leaves
+    from repro_torch.train.step import make_lm_train_step
+
+    cfg = granite_config()
+    cpu = torch.device("cpu")
+    # the float64 check's CPU route runs on a host thread beside the steps
+    small = dataclasses.replace(cfg, n_layers=TRAIN_CHECK_LAYERS)
+    small_params = T.init_params(small, torch.Generator().manual_seed(seed + 60), device=cpu)
+    small_batch = SyntheticTokens(cfg.vocab, 1, TRAIN_CHECK_SEQ, seed=seed + 60)[0]
+    cpu_join = in_background(
+        lambda: lm_check_grads(small, small_params, small_batch, cpu, torch.float64),
+        "lm_train_cpu_f64")
+
+    free_device(device)
+    reset_peak(device)
+    params = T.init_params(cfg, torch.Generator(device=device).manual_seed(seed + 61),
+                           device=device)
+    opt = adamw.init(params)
+    step = make_lm_train_step(cfg, compute_dtype=torch.float32, warmup=10, total=20)
+    data = SyntheticTokens(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=seed + 61)
+    losses, gnorms, step_s, box = [], [], [], {}
+    busy_ms = prof_ms = None
+    for i in range(TRAIN_STEPS):
+        toks, tgts = (torch.from_numpy(data[i][k]).to(device) for k in ("tokens", "targets"))
+
+        def run():
+            box["out"] = step(params, opt, toks, tgts)
+
+        if i == TRAIN_STEPS - 1:  # the last step under the profiler
+            busy_ms, prof_ms = profiled_step(run, device, host_ops=False)
+        else:
+            step_s.append(wall(run, device)[1])
+        _, opt, metrics = box.pop("out")
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+    peak = peak_bytes(device)
+    finite = all(bool(torch.isfinite(t).all()) for tree in (params, opt.mu, opt.nu)
+                 for t in tree_leaves(tree))
+    ln_v = math.log(cfg.vocab)
+    if not (abs(losses[0] - ln_v) <= 0.5 and losses[-1] < losses[0]
+            and all(map(math.isfinite, gnorms)) and finite):
+        raise AssertionError(f"lm_train: losses {losses} (ln V {ln_v}), grad norms {gnorms}, "
+                             f"every leaf finite: {finite}")
+    median_s = float(np.median(step_s))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    report = dict(
+        config=cfg.name, batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS, losses=losses,
+        grad_norms=gnorms, step_s=step_s, median_step_s=median_s,
+        tokens_per_s=tokens / median_s, model_flops=flops,
+        flops_formula="6 * n_active_params * tokens + 6 * B * S^2 * H * dh * L",
+        f32_peak_share=flops / median_s / CUDA_CORE_OPS_PER_S,
+        profiled_step_ms=prof_ms, device_busy_ms=busy_ms,
+        busy_share_profiled=None if busy_ms is None else busy_ms / prof_ms,
+        idle_share_profiled=None if busy_ms is None else 1.0 - busy_ms / prof_ms,
+        param_bytes=sum(t.numel() * t.element_size() for t in tree_leaves(params)),
+        peak_allocated_bytes=peak)
+    emit("lm_train", **report)
+    del params, opt, box
+    free_device(device)
+
+    # step 0 of the cut model, card against CPU, float64; the card's f32 the control
+    card64 = lm_check_grads(small, small_params, small_batch, device, torch.float64)
+    card32 = lm_check_grads(small, small_params, small_batch, device, torch.float32)
+    cpu64 = cpu_join()[0]
+    n_leaves = len(tree_leaves(cpu64[0][1]))
+    check = hold_grads(small, "float64", card64[0], cpu64[0], [LM_F64_GRAD_TOL] * n_leaves,
+                       {"card_f32": card32[0]}, loss_rtol=LM_F64_LOSS_RTOL)
+    check.update(layers=TRAIN_CHECK_LAYERS, tokens=TRAIN_CHECK_SEQ, leaves=n_leaves,
+                 card_f64_s=card64[1], card_f32_s=card32[1], cpu_f64_s=cpu64[1])
+    emit("lm_train_f64_check", **check)
+    report["f64_check"] = check
+    del card64, card32, cpu64
+    free_device(device)
+
+    # the launcher at --smoke: 6 steps with a checkpoint every 3, then a resume to 8
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        argv = ["--arch", GRANITE, "--smoke", "--device", device.type, "--ckpt-every", "3",
+                "--ckpt-dir", ckpt_dir, "--seed", str(seed)]
+        first, first_s = wall(lambda: train_main(argv + ["--steps", "6"]), device)
+        (p, o), meta = ckpt.restore(first["ckpt_dir"], (first["params"], first["opt"]))
+        saved = (tree_leaves(p) + tree_leaves(o.mu) + tree_leaves(o.nu) + [o.step])
+        held = (tree_leaves(first["params"]) + tree_leaves(first["opt"].mu)
+                + tree_leaves(first["opt"].nu) + [first["opt"].step])
+        bitwise = meta["step"] == 5 and all(torch.equal(a, b.to(a.device))
+                                            for a, b in zip(saved, held))
+        s_cfg = first["cfg"]
+        b6 = SyntheticTokens(s_cfg.vocab, 8, 128, seed=seed)[6]
+        with torch.no_grad():
+            want = float(T.lm_loss(T.forward(s_cfg, first["params"],
+                                             torch.from_numpy(b6["tokens"]).to(device),
+                                             torch.float32),
+                                   torch.from_numpy(b6["targets"]).to(device)))
+        second, second_s = wall(lambda: train_main(argv + ["--steps", "8", "--resume"]), device)
+    resumed_err = abs(second["losses"][0] - want) / abs(want)
+    if not (bitwise and second["start"] == 6 and len(second["losses"]) == 2
+            and resumed_err <= 1e-6 and all(map(math.isfinite, first["losses"]))):
+        raise AssertionError(f"train launcher: checkpoint bitwise {bitwise}, resumed at "
+                             f"{second['start']}, first resumed loss {second['losses']} vs {want}")
+    report["launcher"] = dict(config=s_cfg.name, first_s=first_s, second_s=second_s,
+                              losses=first["losses"] + second["losses"], resumed_at=second["start"],
+                              restored_bitwise=bitwise, resumed_loss_rel_err=resumed_err)
+    emit("lm_train_launcher", **report["launcher"])
+    return report
+
+
+def phase_recsys_train(seed: int, device) -> dict:
+    """Phase 12: BST at its published config trains ``BST_TRAIN_STEPS``
+    steps of train_batch (65,536 rows, ``RecsysBatches`` from the seed), the
+    [4,194,304, 32] table on the card; step 0's gradients on 512 rows, card
+    against CPU in float64; the backward's ``index_add_`` timed alone."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.pipeline import RecsysBatches
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.models import bst as B
+    from repro_torch.optim import adamw
+    from repro_torch.optim.tree import tree_leaves, tree_map
+    from repro_torch.train.step import bst_value_and_grad, make_bst_train_step
+
+    _, cfg = model_configs()
+    cpu = torch.device("cpu")
+    free_device(device)
+    reset_peak(device)
+    params = B.init_params(cfg, torch.Generator(device=device).manual_seed(seed + 70),
+                           device=device)
+    first = tree_map(lambda t: t.to(cpu, copy=True), params)  # step 0's parameters
+    opt = adamw.init(params)
+    step = make_bst_train_step(cfg)  # the reference's lr 1e-3 and bf16 compute
+    data, gen_s = wall(lambda: [RecsysBatches(cfg.n_items, BST_TRAIN_BATCH, cfg.seq_len,
+                                              cfg.n_other_feats, seed=seed)[i]
+                                for i in range(BST_TRAIN_STEPS)], cpu)
+    keys = ("hist", "target", "other", "label")
+    losses, step_s, per_step = [], [], []
+    for batch in data:
+        x = [torch.from_numpy(batch[k]).to(device) for k in keys]
+        n0 = embedding_bag.launches
+        (params, opt, m), sec = wall(lambda: step(params, opt, *x), device)
+        per_step.append(embedding_bag.launches - n0)
+        losses.append(float(m["loss"]))
+        step_s.append(sec)
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"recsys_train: losses {losses}")
+    if "embedding_bag" in PATH_KERNELS["recsys_train"] and min(per_step) < 1:
+        raise AssertionError(f"recsys_train: embedding_bag launches per step {per_step}")
+    peak = peak_bytes(device)
+    del params, opt
+    free_device(device)
+
+    # the backward's scatter alone, at the training batch's ids
+    ids = torch.from_numpy(recsys_train_ids(cfg, 0, seed)).to(device).long()
+    rows = torch.randn((ids.numel(), cfg.embed_dim), device=device)
+    table_bytes = cfg.n_items * cfg.embed_dim * 4
+    scatter_ms = time_ms(lambda: torch.zeros((cfg.n_items, cfg.embed_dim), device=device)
+                         .index_add_(0, ids, rows), device, 10)
+    scatter_bound = bound(table_bytes + rows.numel() * 4 + ids.numel() * 8, rows.numel())
+    del ids, rows
+
+    # step 0's gradients on BST_CHECK_BATCH rows: card vs CPU, float64 (the table f32)
+    small = {k: v[:BST_CHECK_BATCH] for k, v in data[0].items()}
+
+    def grads_on(dev, dtype):
+        p = {k: (t.to(dev) if k == "item_emb" else tree_map(lambda u: u.to(dev, dtype), t))
+             for k, t in first.items()}
+        x = [torch.from_numpy(small[k]).to(dev) for k in keys]
+        x[2:] = [t.to(dtype) for t in x[2:]]
+        return wall(lambda: bst_value_and_grad(cfg, p, *x, compute_dtype=dtype), dev)
+
+    card64, card32, cpu64 = (grads_on(device, torch.float64), grads_on(device, torch.float32),
+                             grads_on(cpu, torch.float64))
+    names = [n for n in sorted(first) for _ in tree_leaves(first[n])]
+    limits = [BST_TABLE_GRAD_TOL if n == "item_emb" else BST_F64_GRAD_TOL for n in names]
+    check = hold_grads(cfg, "float64", card64[0], cpu64[0], limits, {"card_f32": card32[0]},
+                       loss_rtol=BST_F64_LOSS_RTOL)
+    errs = leaf_errors(card64[0][1], cpu64[0][1])
+    check.update(rows=BST_CHECK_BATCH, table_leaf_err=errs[names.index("item_emb")],
+                 other_leaves_max_err=max(e for e, n in zip(errs, names) if n != "item_emb"),
+                 card_f64_s=card64[1], cpu_f64_s=cpu64[1])
+    median_s = float(np.median(step_s))
+    report = dict(config=cfg.name, batch=BST_TRAIN_BATCH, steps=BST_TRAIN_STEPS, losses=losses,
+                  step_s=step_s, median_step_s=median_s, rows_per_s=BST_TRAIN_BATCH / median_s,
+                  batch_gen_s=gen_s, embedding_bag_launches_per_step=per_step,
+                  index_add_ms=scatter_ms, index_add_bound_ms=scatter_bound[0],
+                  index_add_bound_by=scatter_bound[1], peak_allocated_bytes=peak,
+                  f64_check=check)
+    emit("recsys_train", **report)
+    del card64, card32, cpu64, first
+    free_device(device)
+    return report
+
+
 def run_models(seed: int, device, launches: dict) -> dict:
-    """Phases 7-9; returns the model kernels' records."""
+    """Phases 7-13; returns the model kernels' records."""
     import torch
 
     free_device(device)
@@ -2566,9 +3061,13 @@ def run_models(seed: int, device, launches: dict) -> dict:
     kernels = phase_model_kernels(seed, device)
     counted("lm_serve", launches, phase_lm_serve, seed, device)
     counted("recsys_serve", launches, phase_recsys_serve, seed, device)
+    peaks = [peak_bytes(device)]  # the later phases reset the peak when they start
+    for path, phase in (("lm_prefill", phase_lm_prefill), ("lm_train", phase_lm_train),
+                        ("recsys_train", phase_recsys_train)):
+        counted(path, launches, phase, seed, device)
+        peaks.append(peak_bytes(device))
     if device.type == "cuda":
-        emit("memory", phases="7-9",
-             peak_allocated_bytes=torch.cuda.max_memory_allocated(device))
+        emit("memory", phases="7-13", peak_allocated_bytes=max(peaks))
     return kernels
 
 
@@ -2596,7 +3095,10 @@ PATH_KERNELS = {
     "durability": ("leaf_search", "leaf_scan_reduce", "leaf_spmm", "intersect_count"),
     "triangles": ("intersect_count",),
     "lm_serve": ("flash_decode",),
+    "lm_prefill": (),  # flash attention and MoE are torch ops: no hand kernel
+    "lm_train": (),
     "recsys_serve": ("embedding_bag",),
+    "recsys_train": ("embedding_bag",),
 }
 
 
@@ -2616,7 +3118,7 @@ def counted(path: str, launches: dict, fn, *args):
 
 
 def run(seed: int, device) -> dict:
-    """Phases 1-9 on ``device``; returns the per-kernel records."""
+    """Phases 1-12 on ``device``; returns the per-kernel records."""
     import torch
 
     if device.type == "cuda":
@@ -2635,14 +3137,19 @@ def run(seed: int, device) -> dict:
                                          seed, device))
     del store, r0, ops0, first
     counted("durability", launches, phase_durability, seed, device)
-    tc_store, tc_info = counted("triangles", launches, phase_triangles, TC_SCALE, seed, device)
-    triangle_split(tc_store, tc_info, device)
-    phase_shard_symmetric(tc_store, device)
-    del tc_store
-    if device.type == "cuda":
-        emit("memory", phases="1-6", peak_allocated_bytes=max(
-            prior_peak, torch.cuda.max_memory_allocated(device)))
-    kernels.update(run_models(seed, device, launches))
+    tc_store, tc_info, tc_host = counted("triangles", launches, phase_triangles, TC_SCALE,
+                                         seed, device)
+    try:
+        triangle_split(tc_store, tc_info, device)
+        phase_shard_symmetric(tc_store, device)
+        del tc_store
+        if device.type == "cuda":
+            emit("memory", phases="1-6", peak_allocated_bytes=max(
+                prior_peak, torch.cuda.max_memory_allocated(device)))
+        kernels.update(run_models(seed, device, launches))
+        hold_host_triangles(tc_host, tc_info)
+    finally:
+        tc_host.close()
     for name, rec in kernels.items():
         source, replaces = KERNELS[name]
         rec.update(route="cuda", source=source, replaces=replaces,

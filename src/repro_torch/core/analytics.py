@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .arrays import sorted_unique
 from .distributed import make_bfs, make_pagerank, make_sssp, make_wcc
 from .shard_plane import active_plane
 
@@ -251,7 +252,7 @@ def triangle_count_fast(csr) -> int:
     e_src = src[mask]
     total = 0
     # group by src for locality; probe each (u,v) pair's N+(v) against N+(u)
-    for u in np.unique(e_src):
+    for u in sorted_unique(e_src):
         nu = indices[offsets[u] : offsets[u + 1]]
         nu = nu[nu > u]
         if len(nu) == 0:

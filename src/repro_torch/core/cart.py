@@ -49,6 +49,7 @@ from typing import Optional
 
 import numpy as np
 
+from .arrays import sorted_unique
 from .leaf_pool import LeafPool
 
 
@@ -243,7 +244,7 @@ def insert_many(pool, dir_: CartDir, vs: np.ndarray) -> CartDir:
     amortize the copy).
     """
     lp = _sub(pool, dir_)
-    vs = np.unique(np.asarray(vs, dtype=np.int32))
+    vs = sorted_unique(np.asarray(vs, dtype=np.int32))
     if len(vs) == 0:
         return dir_
     li = np.maximum(np.searchsorted(dir_.leaf_min, vs, side="right") - 1, 0)
@@ -284,7 +285,7 @@ def insert_many(pool, dir_: CartDir, vs: np.ndarray) -> CartDir:
 def delete_many(pool, dir_: CartDir, vs: np.ndarray) -> CartDir:
     """Batch delete: one COW rebuild per touched leaf + sibling merge pass."""
     lp = _sub(pool, dir_)
-    vs = np.unique(np.asarray(vs, dtype=np.int32))
+    vs = sorted_unique(np.asarray(vs, dtype=np.int32))
     if len(vs) == 0:
         return dir_
     li = np.maximum(np.searchsorted(dir_.leaf_min, vs, side="right") - 1, 0)

@@ -17,6 +17,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from .arrays import sorted_unique
+
 
 @dataclass(frozen=True)
 class ClusteredIndex:
@@ -86,7 +88,7 @@ def apply_edits(
     parts = [key_old]
     if len(ins_u):
         parts.append((np.asarray(ins_u, np.int64) << 32) | np.asarray(ins_v, np.int64))
-    keys = np.unique(np.concatenate(parts)) if len(parts) > 1 else key_old
+    keys = sorted_unique(np.concatenate(parts)) if len(parts) > 1 else key_old
     if len(del_u):
         kdel = (np.asarray(del_u, np.int64) << 32) | np.asarray(del_v, np.int64)
         keys = keys[~np.isin(keys, kdel)]

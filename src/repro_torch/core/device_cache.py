@@ -59,6 +59,7 @@ import torch
 
 from ..obs import metrics as _metrics
 from ..obs.trace import TRACER as _trc
+from .arrays import sorted_unique
 from .leaf_pool import SENTINEL as _SENTINEL
 
 SENTINEL = int(_SENTINEL)
@@ -204,7 +205,7 @@ def split_stream_by_tier(data, lens, keys, tiers):
     lens64 = np.asarray(lens).astype(np.int64)
     off = np.cumsum(lens64) - lens64
     out = {}
-    for t in np.unique(np.asarray(tiers)):
+    for t in sorted_unique(tiers):
         gidx = np.nonzero(np.asarray(tiers) == t)[0]
         sel = lens64[gidx]
         local_off = np.cumsum(sel) - sel

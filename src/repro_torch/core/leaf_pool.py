@@ -78,6 +78,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .arrays import sorted_unique
+
 SENTINEL = np.int32(np.iinfo(np.int32).max)
 
 # Degree must drift this fraction past a tier boundary before a compactor
@@ -195,7 +197,7 @@ class LeafPool:
             dead = rows[self.refcount[rows] == 0]
             if len(dead):
                 # dedupe (a directory never references a row twice, but be safe)
-                dead = np.unique(dead)
+                dead = sorted_unique(dead)
                 self.length[dead] = 0
                 self.generation[dead] += 1
                 self._free.extend(int(r) for r in dead)

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..kernels.runtime import default_device
+from .arrays import sorted_unique
 from .clock import LogicalClock
 from .leaf_pool import LeafPool, TieredLeafPool, env_leaf_tiers, parse_leaf_tiers
 from .reader_tracer import FREE_TS, ReaderTracer
@@ -268,7 +269,7 @@ class RapidStore:
                 )
             # de-dup (u,v) pairs, sort by (u,v): clustered bulk order
             key = (u << 32) | v.astype(np.int64)
-            key = np.unique(key)
+            key = sorted_unique(key)
             u = (key >> 32).astype(np.int64)
             v = (key & 0xFFFFFFFF).astype(np.int32)
             sid_of = u // store.p

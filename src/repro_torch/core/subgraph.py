@@ -32,6 +32,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from . import cart, clustered_index as cidx
+from .arrays import sorted_unique
 from .cart import CartDir
 from .clustered_index import ClusteredIndex
 from .leaf_pool import SENTINEL, LeafPool
@@ -201,13 +202,13 @@ class SubgraphSnapshot:
         dir_keys = np.fromiter(self.dirs.keys(), np.int64, len(self.dirs))
         cart_ins = np.isin(ins_u, dir_keys) if len(dir_keys) else np.zeros(len(ins_u), bool)
         cart_del = np.isin(del_u, dir_keys) if len(dir_keys) else np.zeros(len(del_u), bool)
-        for lu in np.unique(ins_u[cart_ins]):
+        for lu in sorted_unique(ins_u[cart_ins]):
             d0 = new_dirs[int(lu)]
             d1 = cart.insert_many(self.pool, d0, ins_v[ins_u == lu])
             if d1 is not d0:
                 new_dirs[int(lu)] = d1
                 changed = True
-        for lu in np.unique(del_u[cart_del]):
+        for lu in sorted_unique(del_u[cart_del]):
             base = new_dirs[int(lu)]
             d1 = cart.delete_many(self.pool, base, del_v[del_u == lu])
             if d1 is not base:
@@ -241,7 +242,7 @@ class SubgraphSnapshot:
 
         # --- promotion: CI vertex crossed the high-degree threshold ------------
         if new_ci is not self.ci and len(ci_ins_u):
-            for lu in np.unique(ci_ins_u):
+            for lu in sorted_unique(ci_ins_u):
                 lu = int(lu)
                 if lu in new_dirs:
                     continue
@@ -254,7 +255,7 @@ class SubgraphSnapshot:
 
         # --- demotion: C-ART vertex fell below half the threshold --------------
         if len(del_u):
-            for lu in np.unique(del_u):
+            for lu in sorted_unique(del_u):
                 lu = int(lu)
                 d = new_dirs.get(lu)
                 if d is None:
@@ -619,7 +620,7 @@ def build_subgraph(
     for lu in high:
         m = local_u == lu
         low_mask &= ~m
-        vals = np.sort(np.unique(vs[m]))
+        vals = sorted_unique(vs[m])
         tier = None
         if tier_hints and int(lu) in tier_hints:
             tier = pool.tier_for_degree(len(vals), current=tier_hints[int(lu)])

@@ -1,6 +1,6 @@
 """Graph substrate: segment ops, generators, samplers, batching."""
 
-from .generators import rmat_edges, uniform_edges
+from .generators import rmat_edges, rmat_edges_torch, uniform_edges
 from .segment_ops import (
     segment_max,
     segment_mean,
@@ -12,6 +12,7 @@ from .segment_ops import (
 
 __all__ = [
     "rmat_edges",
+    "rmat_edges_torch",
     "uniform_edges",
     "segment_softmax",
     "segment_sum",

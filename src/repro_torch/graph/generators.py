@@ -40,6 +40,30 @@ def rmat_edges(
     return e
 
 
+def rmat_edges_torch(
+    n_log2: int, m: int, seed: int, device, a=0.57, b=0.19, c=0.19
+) -> np.ndarray:
+    """:func:`rmat_edges`' recursion with the draws made by torch on
+    ``device`` (float64, one ``torch.Generator`` seeded with ``seed``):
+    the same quadrant probabilities, another stream of numbers, and on a
+    card seconds where the host takes minutes at scale 22."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    m_gen = int(m * 1.15)
+    src = torch.zeros(m_gen, dtype=torch.int64, device=device)
+    dst = torch.zeros(m_gen, dtype=torch.int64, device=device)
+    for _ in range(n_log2):
+        r = torch.rand(m_gen, generator=g, dtype=torch.float64, device=device)
+        src_bit = r >= a + b
+        r2 = torch.rand(m_gen, generator=g, dtype=torch.float64, device=device)
+        dst_bit = torch.where(src_bit, r2 >= c / (c + 1 - a - b - c), r2 >= a / (a + b))
+        src = (src << 1) | src_bit
+        dst = (dst << 1) | dst_bit
+    e = torch.stack([src, dst], 1)
+    return e[e[:, 0] != e[:, 1]][:m].cpu().numpy()
+
+
 def zipf_edges(n: int, m: int, seed: int = 0, alpha: float = 1.3) -> np.ndarray:
     """Skewed-destination stream (the paper's ldbc hotspot regime)."""
     rng = np.random.default_rng(seed)

@@ -28,8 +28,9 @@ def _sync(device: torch.device) -> None:
 
 def main(argv=None) -> dict:
     """Run the loop; returns what it made (config, parameters, cache, the
-    generated tokens [B, 1 + decode_tokens], the last logits, the next
-    free position and tokens/s) for callers that check it."""
+    prompt, the logits after its last token, the generated tokens [B, 1 +
+    decode_tokens], the last logits, the next free position and tokens/s)
+    for callers that check it."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True, choices=registry.arch_ids())
     ap.add_argument("--smoke", action="store_true")
@@ -58,6 +59,7 @@ def main(argv=None) -> dict:
         0, cfg.vocab, size=(b, args.prompt_len), dtype=np.int32)).to(device)
     for t in range(args.prompt_len):  # token by token, as the reference
         logits, next_tok, cache = step(params, cache, prompt[:, t:t + 1], t)
+    prompt_logits = logits
     out = [next_tok[:, None]]
     _sync(device)
     t0 = time.perf_counter()
@@ -71,9 +73,9 @@ def main(argv=None) -> dict:
     print(f"[serve] {cfg.name}: {total} tokens in {dt:.2f}s = {total / dt:.1f} tok/s "
           f"(batch {b}, {device})")
     print("[serve] sample ids:", tokens[0, :16].cpu().numpy())
-    return {"cfg": cfg, "params": params, "cache": cache, "tokens": tokens,
-            "logits": logits, "pos": args.prompt_len + args.decode_tokens,
-            "tok_per_s": total / dt, "seconds": dt}
+    return {"cfg": cfg, "params": params, "cache": cache, "prompt": prompt,
+            "prompt_logits": prompt_logits, "tokens": tokens, "logits": logits,
+            "pos": args.prompt_len + args.decode_tokens, "tok_per_s": total / dt, "seconds": dt}
 
 
 if __name__ == "__main__":

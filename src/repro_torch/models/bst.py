@@ -11,8 +11,11 @@ torch, as they are plain XLA in the reference.  A ``lookup_fn(table, ids)
 -> [*ids.shape, d]`` replaces the lookup (the row-sharded lookup of the
 multi-GPU slice, or a plain route to check against).
 
-Serving only: ``bst_loss`` is the forward of the loss; training and the
-sharded lookup come with later slices.
+Training: ``embedding_lookup`` is an autograd function whose backward adds
+each looked-up row's gradient into a zero table gradient (``index_add_``),
+what autodiff of the reference's ``table[ids]`` gives; the rest of
+``forward`` and ``bst_loss`` take their gradients from autograd.  The
+sharded lookup comes with the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import torch.nn.functional as F
 
 from ..configs.base import RecsysConfig
 from ..kernels.embedding_bag import embedding_bag
-from .common import dense_init, embed_init, fill_tree, rms_norm
+from .common import dense_init, embed_init, fill_tree, rms_norm, upcast
 
 
 def bst_shapes(cfg: RecsysConfig) -> Dict:
@@ -67,10 +70,28 @@ def init_params(cfg: RecsysConfig, generator: torch.Generator, dtype=torch.float
 # ---------------------------------------------------------------------------
 # embedding lookup
 # ---------------------------------------------------------------------------
+class _Lookup(torch.autograd.Function):
+    """Rows of ``table`` through ``embedding_bag`` (bags of one id); the
+    backward scatters the rows' gradients into a zero ``[V, d]`` gradient."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.table = (table.shape, table.dtype)
+        return embedding_bag(table, ids.reshape(-1, 1))
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        shape, dtype = ctx.table
+        out = torch.zeros(shape, dtype=grad.dtype, device=grad.device)
+        return out.index_add_(0, ids.reshape(-1).long(), grad).to(dtype), None
+
+
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``table[ids]`` in f32 as bags of one id: ids [...] -> [..., d]."""
-    out = embedding_bag(table, ids.reshape(-1, 1))
-    return out.reshape(*ids.shape, table.shape[1])
+    """``table[ids]`` in f32 as bags of one id: ids [...] -> [..., d],
+    differentiable in ``table``."""
+    return _Lookup.apply(table, ids).reshape(*ids.shape, table.shape[1])
 
 
 # ---------------------------------------------------------------------------
@@ -85,7 +106,7 @@ def forward(
     lookup_fn=None,
     compute_dtype=torch.bfloat16,
 ) -> torch.Tensor:
-    """Returns CTR logits [B] (f32)."""
+    """Returns CTR logits [B] in at least f32."""
     lookup = lookup_fn or embedding_lookup
     cd = compute_dtype
     b = hist_ids.shape[0]
@@ -100,7 +121,7 @@ def forward(
         q = (h @ p["wq"].to(cd)).reshape(b, -1, cfg.n_heads, hd)
         k = (h @ p["wk"].to(cd)).reshape(b, -1, cfg.n_heads, hd)
         v = (h @ p["wv"].to(cd)).reshape(b, -1, cfg.n_heads, hd)
-        sc = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
+        sc = torch.einsum("bqhd,bkhd->bhqk", q, k).to(upcast(cd))
         sc = sc / math.sqrt(hd)
         attn = torch.softmax(sc, dim=-1).to(cd)
         o = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, -1, d)
@@ -114,11 +135,11 @@ def forward(
         h = h @ params["mlp"][f"w{i}"].to(cd) + params["mlp"][f"b{i}"].to(cd)
         if i < n_mlp - 1:
             h = F.leaky_relu(h)
-    return h[:, 0].float()
+    return h[:, 0].to(upcast(cd))
 
 
 def bst_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Binary cross entropy on CTR logits (forward only)."""
+    """Binary cross entropy on CTR logits."""
     return torch.mean(
         torch.clamp(logits, min=0) - logits * labels
         + torch.log1p(torch.exp(-torch.abs(logits)))

@@ -26,25 +26,33 @@ def embed_init(generator: torch.Generator, shape, dtype=torch.float32, *,
     return t.mul_(0.02).to(dtype)
 
 
+def upcast(dtype: torch.dtype) -> torch.dtype:
+    """``dtype`` raised to at least f32: where the reference computes in f32,
+    the port does too, and in float64 for float64 inputs."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
              zero_centered: bool = False) -> torch.Tensor:
-    """RMSNorm in f32, cast back to ``x``'s dtype.
+    """RMSNorm in at least f32, cast back to ``x``'s dtype.
 
     ``zero_centered`` follows Gemma's (1 + w) parameterization.
     """
     dtype = x.dtype
-    x = x.float()
+    x = x.to(upcast(dtype))
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     w = (1.0 + weight) if zero_centered else weight
     return (x * w).to(dtype)
 
 
-def make_rope(positions: torch.Tensor, d_head: int, theta: float = 10000.0):
-    """(sin, cos) tables for rotary embedding; positions [..., S]."""
+def make_rope(positions: torch.Tensor, d_head: int, theta: float = 10000.0,
+              dtype=torch.float32):
+    """(sin, cos) tables for rotary embedding in ``dtype`` (f32, as the
+    reference, unless a float64 model asks for float64); positions [..., S]."""
     half = d_head // 2
-    exps = torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
+    exps = torch.arange(0, half, dtype=dtype, device=positions.device) / half
     freqs = 1.0 / (theta ** exps)
-    angles = positions.float()[..., None] * freqs  # [..., S, half]
+    angles = positions.to(dtype)[..., None] * freqs  # [..., S, half]
     return torch.sin(angles), torch.cos(angles)
 
 

@@ -1,0 +1,123 @@
+"""Mixture-of-Experts FFN: top-k routing, sorted dispatch, scatter-add combine.
+
+Tokens' (token, expert) assignments are sorted stably by expert id, so each
+expert's tokens form one contiguous group; the expert products run on those
+groups and the results come back to their tokens with ``index_add_`` (the
+reference's ``segment_sum``).  Three forms of the same function, as in the
+reference:
+
+- ``ragged`` (the default): one ``torch.matmul`` per expert over its group,
+  exactly the top-k products (the reference's ``jax.lax.ragged_dot``);
+- ``capacity``: every expert's group padded or cut to a fixed capacity C,
+  then batched ``[E, C, D] x [E, D, F]`` products; assignments beyond an
+  expert's capacity are dropped, in the stable sort's order;
+- ``dense``: every token through every expert, masked by the combine
+  weights (tests and tiny configs).
+
+Routing (softmax, top-k) is computed in at least f32.  The sharded forms of
+the reference (``make_weight_stationary_moe_ffn``, ``make_sharded_moe_ffn``)
+wait for the multi-GPU plane.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from ..configs.base import LMConfig
+from .common import activation, upcast
+
+CAPACITY_FACTOR = 1.25
+
+
+def moe_shapes(cfg: LMConfig) -> Dict:
+    """The layer-stacked MoE leaves as key -> shape; ``transformer.init_params``
+    draws them fan-in scaled, as the reference's ``init_moe_layer`` does."""
+    L, D = cfg.n_layers, cfg.d_model
+    E, F = cfg.moe.n_experts, cfg.moe.d_ff
+    return {"router": (L, D, E), "we_gate": (L, E, D, F), "we_up": (L, E, D, F),
+            "we_down": (L, E, F, D)}
+
+
+def moe_ffn(cfg: LMConfig, lw: Dict, x: torch.Tensor) -> torch.Tensor:
+    """x: [T, D] -> [T, D]. ``lw`` holds this layer's (unstacked) weights."""
+    impl = {"dense": _moe_dense, "capacity": _moe_capacity}.get(cfg.moe.impl, _moe_ragged)
+    return impl(cfg, lw, x)
+
+
+def router_probs(cfg: LMConfig, lw: Dict, x: torch.Tensor):
+    """(top_p [T, K] renormalized, top_i [T, K]) from the router's softmax."""
+    dt = upcast(x.dtype)
+    probs = torch.softmax(x.to(dt) @ lw["router"].to(dt), dim=-1)
+    top_p, top_i = torch.topk(probs, cfg.moe.top_k, dim=-1)
+    return top_p / torch.sum(top_p, dim=-1, keepdim=True), top_i  # renormalize (Mixtral)
+
+
+def _dispatch(cfg: LMConfig, lw: Dict, x: torch.Tensor):
+    """The assignments sorted stably by expert: (the token of each, its
+    weight, each expert's group size [E] int64)."""
+    top_p, top_i = router_probs(cfg, lw, x)
+    flat_e = top_i.reshape(-1)  # [T*K]
+    order = torch.argsort(flat_e, stable=True)  # groups tokens by expert
+    tok_of = torch.div(order, cfg.moe.top_k, rounding_mode="floor")
+    # a scatter of ones, not bincount, which reads the largest id back to the host
+    group_sizes = torch.zeros(cfg.moe.n_experts, dtype=flat_e.dtype, device=x.device)
+    group_sizes.scatter_add_(0, flat_e, torch.ones_like(flat_e))
+    return tok_of, top_p.reshape(-1)[order], group_sizes
+
+
+def _moe_ragged(cfg: LMConfig, lw: Dict, x: torch.Tensor) -> torch.Tensor:
+    act = activation(cfg.act)
+    tok_of, w_of, group_sizes = _dispatch(cfg, lw, x)
+    xs = x.index_select(0, tok_of)  # [T*K, D] in expert order
+    ys, start = [], 0
+    for e, n in enumerate(group_sizes.tolist()):
+        xe = xs[start:start + n]
+        h = act(xe @ lw["we_gate"][e]) * (xe @ lw["we_up"][e])
+        ys.append(h @ lw["we_down"][e])
+        start += n
+    y = torch.cat(ys)  # [T*K, D]
+    out = torch.zeros_like(y[:x.shape[0]])
+    return out.index_add_(0, tok_of, y * w_of.to(y.dtype)[:, None]).to(x.dtype)
+
+
+def capacity(n_tokens: int, cfg: LMConfig) -> int:
+    """Slots per expert: ceil(T*K / E) * 1.25, cut to an int, then rounded
+    up to a multiple of 128 (the reference's expression, token for token)."""
+    c = int(-(-(n_tokens * cfg.moe.top_k) // cfg.moe.n_experts * CAPACITY_FACTOR))
+    return -(-c // 128) * 128
+
+
+def _moe_capacity(cfg: LMConfig, lw: Dict, x: torch.Tensor) -> torch.Tensor:
+    """Capacity-based dispatch (GShard lineage): bounded memory (E*C*F),
+    identical shapes for any routing; overflowing assignments are dropped."""
+    T, D = x.shape
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    act = activation(cfg.act)
+    tok_of, w_of, group_sizes = _dispatch(cfg, lw, x)
+    starts = torch.cumsum(group_sizes, 0) - group_sizes  # [E]
+    c = capacity(T, cfg)
+    arange = torch.arange(c, device=x.device)
+    slot = torch.clamp(starts[:, None] + arange[None, :], 0, T * K - 1)  # [E, C]
+    valid = arange[None, :] < group_sizes[:, None]
+    rows = tok_of[slot].reshape(-1)  # [E*C] token ids
+    xs = x.index_select(0, rows).reshape(E, c, D) * valid[..., None].to(x.dtype)
+    h = act(torch.bmm(xs, lw["we_gate"])) * torch.bmm(xs, lw["we_up"])
+    y = torch.bmm(h, lw["we_down"])  # [E, C, D]
+    wslot = (w_of[slot] * valid).to(y.dtype)  # [E, C]
+    out = torch.zeros((T, D), dtype=y.dtype, device=x.device)
+    return out.index_add_(0, rows, (y * wslot[..., None]).reshape(E * c, D)).to(x.dtype)
+
+
+def _moe_dense(cfg: LMConfig, lw: Dict, x: torch.Tensor) -> torch.Tensor:
+    """Masked all-experts path (O(T*E) compute): tests and tiny configs."""
+    act = activation(cfg.act)
+    top_p, top_i = router_probs(cfg, lw, x)
+    comb = torch.zeros((x.shape[0], cfg.moe.n_experts), dtype=top_p.dtype, device=x.device)
+    comb = comb.scatter(1, top_i, top_p)  # combine weights [T, E]
+    h = act(torch.einsum("td,edf->tef", x, lw["we_gate"]))
+    h = h * torch.einsum("td,edf->tef", x, lw["we_up"])
+    y = torch.einsum("tef,efd->ted", h, lw["we_down"])
+    return torch.einsum("ted,te->td", y, comb.to(y.dtype)).to(x.dtype)
+

@@ -4,8 +4,9 @@ The reference's models keep their parameters as pytrees: nested dicts of
 arrays, with the LM's layer leaves stacked ``[L, ...]``.  Given such a tree
 as nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``), the
 functions here return the port's parameters with the same keys and shapes,
-so both packages compute the same function on the same weights.  The
-GNN's AdamW state comes across too, so both take the same train step.
+so both packages compute the same function on the same weights.  AdamW
+state (of any of these trees) comes across too, so both take the same
+train step.
 """
 
 from __future__ import annotations
@@ -53,9 +54,7 @@ def lm_params_from_numpy(cfg: LMConfig, tree, *, device,
     """The reference LM's parameter tree (numpy leaves) -> the port's
     parameters on ``device``, which the caller names (``"cpu"`` for the
     host), cast to ``dtype`` when given; raises on a missing, extra or
-    misshapen leaf.  Dense configs."""
-    if cfg.moe is not None:
-        raise NotImplementedError("MoE parameters come with a later slice")
+    misshapen leaf.  Dense and MoE configs."""
     return _convert(tree, lm_shapes(cfg), device, dtype, "lm")
 
 

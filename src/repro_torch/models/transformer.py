@@ -1,15 +1,20 @@
-"""Decoder-only transformer LM, decode half: one token against a KV cache.
+"""Decoder-only transformer LM covering the five archs of the registry.
 
-Ported from the reference's unified LM for dense configs (Qwen2.5, Qwen3,
-Gemma-2): GQA, RoPE (half-split rotation), RMSNorm, qk-norm, QKV bias,
-attention and final logit softcaps, pre+post norms, zero-centered norms,
-local/global layer windows and the embedding scale.  MoE FFNs, prefill
-through ``forward``/``flash_attention`` and training come with later
-slices.
+Ported from the reference's unified LM: GQA, RoPE (half-split rotation),
+RMSNorm, qk-norm, QKV bias, attention and final logit softcaps, pre+post
+norms, zero-centered norms, local/global layer windows, the embedding
+scale, and MoE FFNs (``models/moe.py``: granite, grok).  ``forward`` runs a
+whole sequence through ``flash_attention`` (hand-written backward) with
+``torch.utils.checkpoint`` around each ``remat_block`` of layers;
+``lm_loss`` is the next-token cross entropy; ``decode_step`` feeds one
+token against a KV cache.
 
 Parameters are a dict with layer-stacked ``[L, ...]`` leaves, as in the
-reference; ``decode_step`` walks the layers in a Python loop (the
-reference's ``lax.scan``).  The large products stay ``torch.matmul``.
+reference; both walk the layers in a Python loop (the reference's
+``lax.scan``).  The large products stay ``torch.matmul``.  Where the
+reference computes in f32 (norms, RoPE tables, softmax, attention sums,
+the logits' softcap, the loss), the port computes in at least f32:
+float64 models stay float64 throughout.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import math
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import LMConfig
 from .common import (
@@ -29,25 +35,28 @@ from .common import (
     make_rope,
     rms_norm,
     softcap,
+    upcast,
 )
-
-NEG_INF = -2.0e38
-
-MOE_LATER = "MoE FFN (models/moe.py) is not ported yet: it comes with a later slice"
+from .flash_attention import NEG_INF, attention_forward, flash_attention
+from .moe import moe_ffn, moe_shapes
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 def lm_shapes(cfg: LMConfig) -> Dict:
-    """The parameter tree of a dense LM as key -> shape (leaves of
-    ``layers`` stacked ``[L, ...]``), as the reference lays it out."""
+    """The parameter tree of an LM as key -> shape (leaves of ``layers``
+    stacked ``[L, ...]``), as the reference lays it out: a dense FFN's
+    ``w_gate``/``w_up``/``w_down`` or MoE's router and experts."""
     L, D, H, KV, dh, F = (
         cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_ff,
     )
     layers = {"attn_norm": (L, D), "ffn_norm": (L, D), "wq": (L, D, H * dh),
-              "wk": (L, D, KV * dh), "wv": (L, D, KV * dh), "wo": (L, H * dh, D),
-              "w_gate": (L, D, F), "w_up": (L, D, F), "w_down": (L, F, D)}
+              "wk": (L, D, KV * dh), "wv": (L, D, KV * dh), "wo": (L, H * dh, D)}
+    if cfg.moe is not None:
+        layers.update(moe_shapes(cfg))
+    else:
+        layers.update(w_gate=(L, D, F), w_up=(L, D, F), w_down=(L, F, D))
     if cfg.qkv_bias:
         layers.update(bq=(L, H * dh), bk=(L, KV * dh), bv=(L, KV * dh))
     if cfg.qk_norm:
@@ -66,8 +75,6 @@ def init_params(cfg: LMConfig, generator: torch.Generator, dtype=torch.float32,
     device) in ``lm_shapes``' layout, initialized as the reference does:
     projections fan-in scaled, the embedding N(0, 0.02), biases and
     post-norms 0, qk-norms 1, the other norms 1 (0 when zero-centered)."""
-    if cfg.moe is not None:
-        raise NotImplementedError(MOE_LATER)
     dev = torch.device(device)
     zeros = {"bq", "bk", "bv", "post_attn_norm", "post_ffn_norm"}
     if cfg.zero_centered_norm:
@@ -91,9 +98,35 @@ def layer_is_local(cfg: LMConfig) -> List[bool]:
     return [False] * cfg.n_layers
 
 
+def layer_window(cfg: LMConfig, is_local: bool, span: int) -> int:
+    """A layer's live attention span: the local window, or ``span``."""
+    return cfg.local_window if is_local and cfg.local_window is not None else span
+
+
 # ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
+def chunked_attention(
+    q: torch.Tensor,  # [B, S, H, dh]
+    k: torch.Tensor,  # [B, S, KV, dh]
+    v: torch.Tensor,  # [B, S, KV, dh]
+    *,
+    window: int,  # live attention span (S for global)
+    cap: Optional[float],
+    q_chunk: int = 1024,
+    kv_chunk: int = 1024,
+    causal: bool = True,
+) -> torch.Tensor:
+    """Chunked attention with online softmax -> [B, S, H, dh] in at least
+    f32; every operand is upcast (no rounding of the probabilities), and
+    autograd runs through the chunk loop (no custom backward)."""
+    b, s, h, dh = q.shape
+    kv = k.shape[2]
+    out, _, _ = attention_forward(q.reshape(b, s, kv, h // kv, dh), k, v, int(window), cap,
+                                  min(q_chunk, s), min(kv_chunk, s), causal, upcast(q.dtype))
+    return out.reshape(b, s, h, dh)
+
+
 def decode_attention_ref(
     q: torch.Tensor,  # [B, 1, H, dh]
     k_cache: torch.Tensor,  # [B, S, KV, dh]
@@ -131,15 +164,106 @@ def _project_qkv(cfg: LMConfig, lw: Dict, x: torch.Tensor, positions: torch.Tens
     if cfg.qk_norm:
         q = rms_norm(q, lw["q_norm"], cfg.norm_eps)
         k = rms_norm(k, lw["k_norm"], cfg.norm_eps)
-    sin, cos = make_rope(positions, dh, cfg.rope_theta)
+    sin, cos = make_rope(positions, dh, cfg.rope_theta, dtype=upcast(x.dtype))
     return apply_rope(q, sin, cos), apply_rope(k, sin, cos), v
 
 
 def _ffn(cfg: LMConfig, lw: Dict, x: torch.Tensor) -> torch.Tensor:
     if cfg.moe is not None:
-        raise NotImplementedError(MOE_LATER)
+        b, s, d = x.shape
+        return moe_ffn(cfg, lw, x.reshape(b * s, d)).reshape(b, s, d)
     h = activation(cfg.act)(x @ lw["w_gate"]) * (x @ lw["w_up"])
     return h @ lw["w_down"]
+
+
+def _layer(cfg: LMConfig, lw: Dict, window: int, x: torch.Tensor, positions: torch.Tensor,
+           chunk: int) -> torch.Tensor:
+    zc = cfg.zero_centered_norm
+    h = rms_norm(x, lw["attn_norm"], cfg.norm_eps, zc)
+    q, k, v = _project_qkv(cfg, lw, h, positions)
+    b, s, _, dh = q.shape
+    qg = q.reshape(b, s, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, dh)
+    attn = flash_attention(qg, k, v, window, cfg.attn_softcap, chunk, chunk)
+    attn = attn.reshape(b, s, -1).to(x.dtype) @ lw["wo"]
+    if cfg.post_norms:
+        attn = rms_norm(attn, lw["post_attn_norm"], cfg.norm_eps, zc)
+    x = x + attn
+    h = rms_norm(x, lw["ffn_norm"], cfg.norm_eps, zc)
+    f = _ffn(cfg, lw, h)
+    if cfg.post_norms:
+        f = rms_norm(f, lw["post_ffn_norm"], cfg.norm_eps, zc)
+    return x + f
+
+
+def _embed(cfg: LMConfig, params: Dict, tokens: torch.Tensor, cd) -> torch.Tensor:
+    """Token embeddings in ``cd`` (times sqrt(d_model) where the config asks)."""
+    embed = params["embed"]
+    x = embed.index_select(0, tokens.reshape(-1).long()).reshape(*tokens.shape, -1).to(cd)
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32).to(cd)
+    return x
+
+
+def _logits(cfg: LMConfig, params: Dict, x: torch.Tensor, cd) -> torch.Tensor:
+    """Final norm and unembedding (the embedding's transpose when tied)."""
+    x = rms_norm(x, params["final_norm"].to(cd), cfg.norm_eps, cfg.zero_centered_norm)
+    unembed = params.get("unembed")
+    if unembed is None:
+        return x @ params["embed"].to(cd).T
+    return x @ unembed.to(cd)
+
+
+def forward(
+    cfg: LMConfig,
+    params: Dict,
+    tokens: torch.Tensor,  # [B, S] int
+    compute_dtype=torch.bfloat16,
+    remat: bool = True,
+    attn_chunk: Optional[int] = None,  # None -> 1024; <= 0 -> unchunked (full S)
+) -> torch.Tensor:
+    """Full forward -> logits [B, S, vocab] in the compute dtype.
+
+    The final softcap is applied in at least f32, then the logits are cast
+    back to ``compute_dtype`` (an f32 copy of [B, S, V] would double the
+    loss's memory); ``lm_loss`` upcasts them.  Each layer's weights are
+    cast to ``compute_dtype`` inside its block.  With ``remat`` (and
+    autograd recording) every ``cfg.remat_block`` layers run under
+    ``torch.utils.checkpoint`` and are recomputed in the backward.
+    """
+    cd = compute_dtype
+    s = tokens.shape[1]
+    x = _embed(cfg, params, tokens, cd)
+    positions = torch.arange(s, device=x.device)[None, :]
+    windows = [layer_window(cfg, loc, s) for loc in layer_is_local(cfg)]
+    chunk = 1024 if attn_chunk is None else (s if attn_chunk <= 0 else attn_chunk)
+    L, blk = cfg.n_layers, max(1, cfg.remat_block)
+    if L % blk or L // blk == 1:
+        blk = 1
+    layers = params["layers"]
+
+    def block(x, first: int):
+        for i in range(first, first + blk):
+            lw = {name: t[i].to(cd) for name, t in layers.items()}
+            x = _layer(cfg, lw, windows[i], x, positions, chunk)
+        return x
+
+    for first in range(0, L, blk):
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(block, x, first, use_reentrant=False)
+        else:
+            x = block(x, first)
+    logits = _logits(cfg, params, x, cd)
+    return softcap(logits.to(upcast(cd)), cfg.final_softcap).to(cd)
+
+
+def lm_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy (targets already shifted), in at least
+    f32.  ``gather`` picks the target's logit; the reference's one-hot
+    contraction sums the same value with exact zeros."""
+    logits = logits.to(upcast(logits.dtype))
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    return torch.mean(lse - tgt)
 
 
 # ---------------------------------------------------------------------------
@@ -163,7 +287,7 @@ def decode_step(
     compute_dtype=torch.bfloat16,
     attn_fn: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, Dict]:
-    """One decoding step: returns (logits [B, vocab] f32, cache).
+    """One decoding step: returns (logits [B, vocab] in at least f32, cache).
 
     The new keys and values are written into ``cache`` at ``pos`` IN PLACE
     (the reference returns an updated copy); the returned cache is the
@@ -179,9 +303,7 @@ def decode_step(
     zc = cfg.zero_centered_norm
     b = tokens.shape[0]
     attn_fn = attn_fn or decode_attention_ref
-    x = params["embed"][tokens.long()].to(cd)  # [B, 1, D]
-    if cfg.embed_scale:
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32).to(cd)
+    x = _embed(cfg, params, tokens, cd)  # [B, 1, D]
     pos = int(pos)
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     is_local = layer_is_local(cfg)
@@ -189,8 +311,7 @@ def decode_step(
     layers = params["layers"]
     for i in range(cfg.n_layers):
         lw = {name: t[i].to(cd) for name, t in layers.items()}
-        window = (cfg.local_window if is_local[i] and cfg.local_window is not None
-                  else s_max)
+        window = layer_window(cfg, is_local[i], s_max)
         h = rms_norm(x, lw["attn_norm"], cfg.norm_eps, zc)
         q, k, v = _project_qkv(cfg, lw, h, positions)
         k_cache, v_cache = cache["k"][i], cache["v"][i]
@@ -206,10 +327,5 @@ def decode_step(
         if cfg.post_norms:
             f = rms_norm(f, lw["post_ffn_norm"], cfg.norm_eps, zc)
         x = x + f
-    x = rms_norm(x, params["final_norm"].to(cd), cfg.norm_eps, zc)
-    unembed = params.get("unembed")
-    if unembed is None:
-        logits = x @ params["embed"].to(cd).T
-    else:
-        logits = x @ unembed.to(cd)
-    return softcap(logits[:, 0].float(), cfg.final_softcap), cache
+    logits = _logits(cfg, params, x, cd)
+    return softcap(logits[:, 0].to(upcast(cd)), cfg.final_softcap), cache

@@ -32,3 +32,10 @@ def tree_unflatten(like, leaves) -> dict:
         return next(it)
 
     return fill(like)
+
+
+def leaf_slices(t: torch.Tensor) -> List[torch.Tensor]:
+    """Views that tile ``t``: its leading-axis slices when it has 3 or more
+    dims (a layer of a stacked weight), else ``t`` itself.  In-place
+    updates walk them to keep temporaries one slice large."""
+    return list(t) if t.dim() >= 3 else [t]

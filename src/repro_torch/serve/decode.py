@@ -1,9 +1,10 @@
-"""Serving step: greedy decode of one token against a KV cache.
+"""Serving steps: greedy decode of one token against a KV cache, and prefill.
 
 ``make_decode_step`` builds ``step(params, cache, tokens, pos)``;
 ``flash_attn_fn`` serves its decode attention through the ``flash_decode``
-kernel.  The sequence-parallel attention and the prefill step of the
-reference come with later slices.
+kernel.  ``make_prefill_step`` builds ``step(params, tokens)``, the whole
+prompt's forward returning the last position's logits.  The
+sequence-parallel attention of the reference waits for the multi-GPU plane.
 """
 
 from __future__ import annotations
@@ -54,5 +55,20 @@ def make_decode_step(cfg: LMConfig, compute_dtype=torch.bfloat16, attn_fn=None):
                                       compute_dtype=compute_dtype, attn_fn=attn_fn)
         next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
         return logits, next_tok, cache
+
+    return step
+
+
+def make_prefill_step(cfg: LMConfig, compute_dtype=torch.bfloat16, attn_chunk=None):
+    """``step(params, tokens [B, S]) -> logits [B, V]`` of the last position:
+    the full-prompt forward (no remat, no autograd), in the compute dtype.
+    The reference's sharding arguments (``activation_spec``, ``carry_spec``,
+    ``moe_fn``) and ``unroll`` have no single-device counterpart."""
+
+    def step(params, tokens):
+        with torch.no_grad():
+            logits = T.forward(cfg, params, tokens, compute_dtype=compute_dtype,
+                               remat=False, attn_chunk=attn_chunk)
+        return logits[:, -1]
 
     return step

@@ -2,37 +2,96 @@
 
 Each builder returns ``step(params, opt_state, batch...) -> (params,
 opt_state, metrics)``: the loss and its gradients from torch autograd, then
-a functional AdamW update (new tensors; the old parameters stay as they
-were).  The GNN step is ported here; the LM and BST steps come with their
-model slices.
+AdamW.  The GNN and BST steps update functionally (new tensors; the old
+parameters stay as they were).  The LM step clips and updates in place,
+one layer slice at a time (``clip_by_global_norm_``, ``adamw.update_``,
+bitwise the functional arithmetic): a model whose weights, gradients and
+moments fill most of the card has no room for a second copy of them, so
+its ``params`` and ``opt_state`` moments are overwritten and returned.
+
+The reference's sharding arguments (``activation_spec``, ``carry_spec``,
+``logits_spec``, ``node_spec``, ``moe_fn``, ``gather_fn``, ``scatter_fn``,
+``comm_dtype``) and the layer-scan ``unroll`` have no single-device
+counterpart and are left out.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
-from ..configs.base import GNNConfig
+from ..configs.base import GNNConfig, LMConfig, RecsysConfig
+from ..models import bst as BST
 from ..models import gnn as G
+from ..models import transformer as T
 from ..optim import adamw
+from ..optim.clip import clip_by_global_norm_
+from ..optim.schedule import warmup_cosine
 from ..optim.tree import tree_leaves, tree_map, tree_unflatten
+
+
+def value_and_grad(loss_of: Callable, params):
+    """``(loss, grads)`` of ``loss_of(params)``; ``grads`` has ``params``'
+    tree (zeros for a leaf the loss never reads, as in JAX), and neither is
+    attached to a graph."""
+    with torch.enable_grad():
+        live = tree_map(lambda p: p.detach().requires_grad_(), params)
+        loss = loss_of(live)
+        grads = torch.autograd.grad(loss, tree_leaves(live), allow_unused=True,
+                                    materialize_grads=True)
+    return loss.detach(), tree_unflatten(live, grads)
 
 
 def gnn_value_and_grad(cfg: GNNConfig, params, node_feat, src, dst, edge_mask, labels,
                        label_mask, n_nodes: int, graph_ids: Optional[torch.Tensor] = None,
                        n_graphs: int = 0):
-    """``(loss, grads)`` of ``gnn_loss(gnn_logits(...))`` at ``params``;
-    ``grads`` has ``params``' tree, and neither is attached to a graph."""
-    with torch.enable_grad():
-        live = tree_map(lambda p: p.detach().requires_grad_(), params)
-        logits = G.gnn_logits(cfg, live, node_feat, src, dst, edge_mask, n_nodes,
+    """``(loss, grads)`` of ``gnn_loss(gnn_logits(...))`` at ``params``."""
+    def loss_of(p):
+        logits = G.gnn_logits(cfg, p, node_feat, src, dst, edge_mask, n_nodes,
                               graph_ids=graph_ids, n_graphs=n_graphs)
-        loss = G.gnn_loss(logits, labels, label_mask)
-        # a leaf the model never reads (GatedGCN's norm_scale) gets zeros, as in JAX
-        grads = torch.autograd.grad(loss, tree_leaves(live), allow_unused=True,
-                                    materialize_grads=True)
-    return loss.detach(), tree_unflatten(live, grads)
+        return G.gnn_loss(logits, labels, label_mask)
+
+    return value_and_grad(loss_of, params)
+
+
+def lm_value_and_grad(cfg: LMConfig, params, tokens, targets, compute_dtype=torch.bfloat16,
+                      attn_chunk=None):
+    """``(loss, grads)`` of ``lm_loss(forward(...), targets)`` at ``params``."""
+    return value_and_grad(lambda p: T.lm_loss(T.forward(
+        cfg, p, tokens, compute_dtype=compute_dtype, attn_chunk=attn_chunk), targets), params)
+
+
+def bst_value_and_grad(cfg: RecsysConfig, params, hist, target, other, labels,
+                       lookup_fn=None, compute_dtype=torch.bfloat16):
+    """``(loss, grads)`` of ``bst_loss(forward(...), labels)`` at ``params``."""
+    return value_and_grad(lambda p: BST.bst_loss(BST.forward(
+        cfg, p, hist, target, other, lookup_fn=lookup_fn, compute_dtype=compute_dtype),
+        labels), params)
+
+
+def make_lm_train_step(
+    cfg: LMConfig,
+    peak_lr: float = 3e-4,
+    warmup: int = 2000,
+    total: int = 100_000,
+    max_grad_norm: float = 1.0,
+    compute_dtype=torch.bfloat16,
+    attn_chunk=None,
+):
+    """Value and gradient, global-norm clipping, warmup-cosine LR at the
+    optimizer's step, AdamW; metrics ``loss``, ``grad_norm``, ``lr``.
+    ``params`` and ``opt_state``'s moments are updated in place."""
+
+    def step(params, opt_state, tokens, targets):
+        loss, grads = lm_value_and_grad(cfg, params, tokens, targets,
+                                        compute_dtype=compute_dtype, attn_chunk=attn_chunk)
+        gnorm = clip_by_global_norm_(grads, max_grad_norm)
+        lr = warmup_cosine(opt_state.step, peak_lr, warmup, total)
+        opt_state = adamw.update_(grads, opt_state, params, lr)
+        return params, opt_state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
+
+    return step
 
 
 def make_gnn_train_step(
@@ -47,6 +106,19 @@ def make_gnn_train_step(
         loss, grads = gnn_value_and_grad(
             cfg, params, node_feat, src, dst, edge_mask, labels, label_mask, n_nodes,
             graph_ids=graph_ids if graph_level else None, n_graphs=n_graphs)
+        params, opt_state = adamw.update(grads, opt_state, params, lr, weight_decay=0.0)
+        return params, opt_state, {"loss": loss}
+
+    return step
+
+
+def make_bst_train_step(cfg: RecsysConfig, lr: float = 1e-3, lookup_fn=None,
+                        compute_dtype=torch.bfloat16):
+    """Value and gradient of the CTR loss, then AdamW without weight decay."""
+
+    def step(params, opt_state, hist, target, other, labels):
+        loss, grads = bst_value_and_grad(cfg, params, hist, target, other, labels,
+                                         lookup_fn=lookup_fn, compute_dtype=compute_dtype)
         params, opt_state = adamw.update(grads, opt_state, params, lr, weight_decay=0.0)
         return params, opt_state, {"loss": loss}
 

@@ -16,6 +16,7 @@ import torch
 from repro.core import RapidStore as RStore
 from repro.data import pipeline as RP
 from repro.graph.batching import batch_graphs as r_batch_graphs
+from repro.graph.generators import rmat_edges as r_rmat_edges
 from repro.graph.generators import uniform_edges
 from repro.graph.sampler import NeighborSampler as RSampler
 from repro.graph.sampler import pad_subgraph as r_pad
@@ -24,6 +25,7 @@ from repro_torch.configs import registry
 from repro_torch.core import RapidStore
 from repro_torch.data import pipeline as TP
 from repro_torch.data.pipeline import GraphUpdateStream
+from repro_torch.graph import rmat_edges_torch
 from repro_torch.graph.batching import batch_graphs
 from repro_torch.graph.sampler import NeighborSampler, pad_subgraph
 from repro_torch.models import gnn as G
@@ -78,6 +80,24 @@ def test_pad_subgraph_overflow_raises():
         pad_subgraph(sub, 2, 100)
     with pytest.raises(ValueError, match="static bounds"):
         pad_subgraph(sub, 100, 4)
+
+
+def test_rmat_edges_torch_follows_the_reference_recursion():
+    """Another stream of draws, the same R-MAT: edge count, range, no
+    self-loops, reproducible from the seed, and the reference's skew."""
+    scale, m = 12, 16 << 12
+    got = rmat_edges_torch(scale, m, 3, "cpu")
+    want = r_rmat_edges(scale, m, seed=3)
+    assert got.shape == want.shape == (m, 2) and got.dtype == np.int64
+    assert got.min() >= 0 and got.max() < 1 << scale
+    assert not (got[:, 0] == got[:, 1]).any()
+    np.testing.assert_array_equal(got, rmat_edges_torch(scale, m, 3, "cpu"))
+    for col in (0, 1):
+        g = np.sort(np.bincount(got[:, col], minlength=1 << scale))[::-1]
+        w = np.sort(np.bincount(want[:, col], minlength=1 << scale))[::-1]
+        # the hubs' degrees and the share of isolated vertices within 15%
+        np.testing.assert_allclose(g[:8], w[:8], rtol=0.15)
+        assert abs((g == 0).mean() - (w == 0).mean()) < 0.15 * (w == 0).mean()
 
 
 def test_batch_graphs_matches_reference():

@@ -136,12 +136,6 @@ def test_flash_route_refuses_sliding_window_layers():
                       compute_dtype=torch.float32, attn_fn=flash_attn_fn)
 
 
-def test_moe_configs_wait_for_a_later_slice():
-    cfg = registry.get_smoke_config("granite-moe-3b-a800m")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-
-
 def test_decode_step_writes_the_cache_in_place():
     cfg = registry.get_smoke_config("qwen2.5-14b")
     params = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
