@@ -175,11 +175,38 @@ script exits non-zero without the last line):
              within ``BST_TABLE_GRAD_TOL``, the rest within
              ``BST_F64_GRAD_TOL``, the card's f32 outside); the backward's
              ``index_add_`` into the [4,194,304, 32] gradient timed alone
+12m. mesh_models  the model side of the device mesh, ``MESH_SHARDS`` = 4
+             shards on card k % n_cards (all four on one card), each
+             part counted on its own: (a) ``mesh_bst``: BST's
+             4,194,304 x 32 table split by rows over a (model=4) mesh,
+             serve_p99 and serve_bulk through ``make_sharded_lookup``
+             (rows bitwise the single lookup's, logits within 1e-5, one
+             embedding_bag launch a shard), one train_batch step through
+             it against the single-device step (f32 rounding), one
+             shard's embedding_bag launch at serve_bulk's per-shard shape
+             timed with its bound; (b) ``mesh_granite``: granite at full
+             width on (data=2, model=2), decode through the SP attention
+             and the weight-stationary MoE: f32 parity on a 4,096 cache
+             over 4 steps (``MESH_LOGITS_TOL``), one f32 forward of 2,048
+             tokens through ``make_sharded_moe_ffn`` against the
+             per-data-shard dispatch on one device, then decode_32k's
+             shape in bf16 timed on both routes (tokens/s); (c)
+             ``mesh_gnn``, right after 5g on the main store: one gin-tu
+             minibatch_lg step through ``make_shardmap_gather``/
+             ``make_shardmap_scatter`` over 4 shards against the single
+             step with bf16 gathers (``MESH_GNN_*``; reversed edges must
+             fail); (d) ``mesh_reduce``: 4 data shards' BST gradients on
+             a quarter of train_batch each, int8 ``compress_grads`` and
+             ``psum_compressed``, within 2 x scale of the plain mean;
+             (e) ``mesh_elastic``: BST placed on (4,) with ``item_emb`` as
+             ``P("data", None)``, saved, restored and placed on (2,),
+             bitwise
 13. the ``kernels`` line, then the ``ok`` line.
 
 The launch counters are set to 0 just before each of phases 3-6, 5s, 5a,
-5g, 5b, 8-12 and read just after it (5g, 10 and 11 launch no hand kernel:
-segment ops, flash attention and MoE are torch ops); every kernel a phase
+5g, 5b, 8-12 and each mesh part, and read just after it (5g, 10, 11 and
+the mesh parts b, c and e launch no hand kernel: segment ops, flash
+attention, MoE and the collectives are torch ops); every kernel a phase
 calls must have launched in it.  The ``kernels`` line's ``launches`` is the count on each
 kernel's own path (phase 3 for the graph kernels, 8 for flash_decode, 9 for
 embedding_bag), and ``launches_by_path`` holds every phase's.  The
@@ -283,6 +310,24 @@ GNN_F64_GRAD_TOL = {"gin": 1e-9, "gatedgcn": 1e-9, "gcn": 1.5e-7, "pna": 1.5e-7}
 # 169,984 rows with cancellation, so both routes' f32 sit up to ~5e-4 from
 # float64 (``card_f32_vs_f64`` and ``cpu_f32_vs_f64`` in the phase's line)
 GNN_F32_GRAD_TOL = 2e-3
+# the mesh phase: the model side of the device mesh, MESH_SHARDS shards on
+# card k % n_cards (all four on one card with one card)
+MESH_SHARDS = 4
+MESH_CHECK_CACHE, MESH_CHECK_STEPS = 4096, 4  # granite's f32 parity: cache, steps
+MESH_FORWARD_SEQ = 2048  # the sharded-MoE forward's tokens
+# f32 logits, sharded against single route (rtol = atol): the launcher
+# check's limit; the two sum the same terms in other orders
+MESH_LOGITS_TOL = 3e-4
+# the GNN step through the bf16-wire gather/scatter against the single
+# route (tests/test_torch_dist_models.py's limits): loss, and each f32
+# first moment of its leaf's largest magnitude, or 2 x MESH_SHARDS times
+# the leaf's own bf16 sensitivity where larger.  The sensitivity is the
+# gap between the single route on an f32 and on a bf16 wire: how far one
+# bf16 rounding of each message moves the leaf.  The sharded route rounds
+# each aggregate up to 2n - 1 times (n shard partials, n - 1 bf16 adds).
+# Layer 0's w0 sums 169,984 rows with cancellation (5g's f32 check): one
+# rounding moves it 4.1e-2, the sharded step 4.5e-2 (H100, 700 W)
+MESH_GNN_LOSS_RTOL, MESH_GNN_GRAD_TOL = 1e-3, 2.0 ** -6
 
 KERNELS = {
     "leaf_search": ("src/repro_torch/csrc/leaf_search.cu",
@@ -3050,8 +3095,444 @@ def phase_recsys_train(seed: int, device) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase mesh_models: the model side of the mesh, four shards on one card
+# ---------------------------------------------------------------------------
+def bst_batch_on(cfg, batch: int, rng, gen, device):
+    """Seeded BST inputs of ``batch`` rows on ``device``: (hist, target, feats)."""
+    import numpy as np
+    import torch
+
+    def ids(shape):
+        return torch.from_numpy(rng.integers(0, cfg.n_items, shape).astype(np.int32)).to(device)
+
+    return (ids((batch, cfg.seq_len)), ids((batch,)),
+            torch.randn((batch, cfg.n_other_feats), generator=gen, device=device))
+
+
+def phase_mesh_bst(seed: int, device) -> dict:
+    """Mesh part (a): BST's item table split by rows over ``MESH_SHARDS``
+    shards (``make_sharded_lookup``, axis ``model``): serve_p99 and
+    serve_bulk through it, the looked-up rows bitwise the single-device
+    lookup's and the logits within 1e-5 of its forward; one train step at
+    train_batch through it against the single-device step (every new
+    parameter within f32 rounding); one shard's ``embedding_bag`` launch at
+    the bulk forward's per-shard shape, timed."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.data.pipeline import RecsysBatches
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    from repro_torch.launch.collectives import P, shard
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import bst as B
+    from repro_torch.optim import adamw
+    from repro_torch.optim.tree import tree_leaves
+    from repro_torch.train.step import make_bst_train_step
+
+    _, cfg = model_configs()
+    mesh = make_mesh((MESH_SHARDS,), ("model",), device=device)
+    lookup = B.make_sharded_lookup(mesh, "model")
+    gen = torch.Generator(device=device).manual_seed(seed + 80)
+    rng = np.random.default_rng(seed + 80)
+    params = B.init_params(cfg, gen, device=device)
+    table = params["item_emb"]
+    report = dict(mesh=dict(mesh.shape), shard_devices=[str(d) for d in mesh.flat_devices],
+                  rows_per_shard=cfg.n_items // MESH_SHARDS)
+    for name, batch in zip(("serve_p99", "serve_bulk"), SERVE_BATCHES):
+        hist, target, feats = bst_batch_on(cfg, batch, rng, gen, device)
+        seq = torch.cat([hist, target[:, None]], dim=1)
+        n0 = embedding_bag.launches
+        rows = lookup(table, seq)
+        launches = embedding_bag.launches - n0
+        if not torch.equal(rows, B.embedding_lookup(table, seq)):
+            raise AssertionError(f"mesh bst {name}: sharded lookup not bitwise the single one")
+        if "embedding_bag" in PATH_KERNELS["mesh_bst"] and launches != MESH_SHARDS:
+            raise AssertionError(f"mesh bst {name}: {launches} embedding_bag launches, "
+                                 f"want one a shard ({MESH_SHARDS})")
+        got = B.forward(cfg, params, hist, target, feats, lookup_fn=lookup)
+        want = B.forward(cfg, params, hist, target, feats)
+        err = check_logits(got, want, 1e-5, 1e-5, f"mesh bst forward {name}")
+        ms = time_ms(lambda: B.forward(cfg, params, hist, target, feats, lookup_fn=lookup),
+                     device, 10)
+        single_ms = time_ms(lambda: B.forward(cfg, params, hist, target, feats), device, 10)
+        report[name] = dict(batch=batch, ms=ms, single_ms=single_ms,
+                            rows_per_s=batch / ms * 1e3, single_rows_per_s=batch / single_ms * 1e3,
+                            lookup_bitwise=True, logits_bitwise=bool(torch.equal(got, want)),
+                            max_abs_err=err, embedding_bag_launches_per_lookup=launches)
+        emit("mesh_bst", cell=name, **report[name])
+        if name == "serve_bulk":  # one shard's launch at this lookup's per-shard shape
+            tab1 = shard(table, mesh, P("model", None))[1]
+            local = seq.reshape(-1, 1) - tab1.shape[0]
+            ids1 = torch.where((local >= 0) & (local < tab1.shape[0]), local, 0).contiguous()
+            got1 = embedding_bag(tab1, ids1)
+            want1 = embedding_bag_ref(tab1, ids1)
+            torch.testing.assert_close(got1, want1, rtol=1e-5, atol=1e-5)
+            ids1_l = ids1.long()
+            distinct = int(torch.unique(ids1).numel())
+            nbytes = distinct * cfg.embed_dim * 4 + ids1.numel() * 4 + ids1.numel() * cfg.embed_dim * 4
+            b_ms, b_by = bound(nbytes, ids1.numel() * cfg.embed_dim)
+            report["embedding_bag_shard"] = dict(
+                name="embedding_bag", shape=[ids1.shape[0], 1, cfg.embed_dim],
+                table_rows=tab1.shape[0], distinct_rows=distinct,
+                max_abs_err=max_abs_err(got1, want1),
+                ms=time_ms(lambda: embedding_bag(tab1, ids1), device, 20, graph=True),
+                plain_ms=time_ms(lambda: embedding_bag_ref(tab1, ids1), device, 5),
+                library_ms=time_ms(lambda: F.embedding_bag(ids1_l, tab1, mode="sum"), device, 20),
+                bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes)
+            emit("kernel", cell="mesh_bst_shard", **report["embedding_bag_shard"])
+            del tab1, local, ids1, ids1_l, got1, want1
+        del hist, target, feats, seq, rows, got, want
+
+    # one train step through the sharded lookup against the single-device step
+    data = RecsysBatches(cfg.n_items, BST_TRAIN_BATCH, cfg.seq_len, cfg.n_other_feats,
+                         seed=seed)[0]
+    x = [torch.from_numpy(data[k]).to(device) for k in ("hist", "target", "other", "label")]
+    opt = adamw.init(params)
+    routes = {}
+    for name, fn in (("sharded", make_bst_train_step(cfg, lookup_fn=lookup)),
+                     ("single", make_bst_train_step(cfg))):
+        fn(params, opt, *x)  # warm: the timed call is the second
+        routes[name] = wall(lambda: fn(params, opt, *x), device)
+    ((p_sh, _, m_sh), sh_s), ((p_1, _, m_1), single_s) = routes["sharded"], routes["single"]
+    worst = 0.0
+    for a, b in zip(tree_leaves(p_sh), tree_leaves(p_1)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)  # f32 rounding of the sums
+        worst = max(worst, max_abs_err(a, b))
+    loss_err = abs(float(m_sh["loss"]) - float(m_1["loss"])) / abs(float(m_1["loss"]))
+    if loss_err > 1e-6:
+        raise AssertionError(f"mesh bst train: loss {float(m_sh['loss'])} vs {float(m_1['loss'])}")
+    report["train"] = dict(batch=BST_TRAIN_BATCH, step_s=sh_s, single_step_s=single_s,
+                           loss=float(m_sh["loss"]), loss_rel_err=loss_err,
+                           params_max_abs_err=worst)
+    emit("mesh_bst", cell="train_batch", **report["train"])
+    del params, table, opt, p_sh, p_1, x
+    free_device(device)
+    return report
+
+
+def phase_mesh_granite(seed: int, device) -> dict:
+    """Mesh part (b): granite-moe-3b-a800m at full width on a (data=2,
+    model=2) mesh, decode through ``make_sp_attn_fn(mesh, ("model",),
+    "data")`` and ``make_weight_stationary_moe_ffn(cfg, mesh, "data",
+    "model")``.  Parity: f32 weights, a cache of ``MESH_CHECK_CACHE``
+    positions, ``MESH_CHECK_STEPS`` steps against the single-device f32
+    route (plain attention, ``moe_ffn``) fed the same tokens, logits within
+    ``MESH_LOGITS_TOL``; one f32 forward of ``MESH_FORWARD_SEQ`` tokens
+    through ``make_sharded_moe_ffn`` against the single-device forward
+    with the same per-data-shard dispatch (``_moe_capacity`` on each half
+    of the tokens, as the reference's own test holds it).  Timed: bf16,
+    ``DECODE_BATCH`` x ``DECODE_SEQ``, ``DECODE_STEPS`` steps of the
+    sharded route and of the single-device route (the ``flash_decode``
+    kernel, decode_32k's route) on the same cache."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe as TM
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.tree import tree_map
+    from repro_torch.serve.decode import flash_attn_fn, make_decode_step, make_sp_attn_fn
+
+    cfg = granite_config()
+    mesh = make_mesh((2, 2), ("data", "model"), device=device)
+    sp_attn = make_sp_attn_fn(mesh, ("model",), "data")
+    ws_moe = TM.make_weight_stationary_moe_ffn(cfg, mesh, "data", "model")
+    gen = torch.Generator(device=device).manual_seed(seed + 90)
+    rng = np.random.default_rng(seed + 90)
+    reset_peak(device)
+    params, init_s = wall(lambda: T.init_params(cfg, gen, dtype=torch.float32, device=device),
+                          device)
+    report = dict(config=cfg.name, mesh=dict(mesh.shape), init_s=init_s)
+
+    def filled_cache(length: int, first: int, dtype):
+        cache = T.init_cache(cfg, DECODE_BATCH, length, dtype=dtype, device=device)
+        for name in ("k", "v"):
+            for i in range(cfg.n_layers):
+                cache[name][i, :, :first].normal_(generator=gen)
+        return cache
+
+    def tokens(shape):
+        return torch.from_numpy(rng.integers(0, cfg.vocab, shape, dtype=np.int32)).to(device)
+
+    # parity in f32: the same cache twice, each route writing its own
+    first = MESH_CHECK_CACHE - MESH_CHECK_STEPS
+    cache_sh = filled_cache(MESH_CHECK_CACHE, first, torch.float32)
+    cache_1 = {k: v.clone() for k, v in cache_sh.items()}
+    step_sh = make_decode_step(cfg, torch.float32, attn_fn=sp_attn, moe_fn=ws_moe)
+    step_1 = make_decode_step(cfg, torch.float32)
+    tok, errs, same_tokens, absmax = tokens((DECODE_BATCH, 1)), [], [], 0.0
+    for i in range(MESH_CHECK_STEPS):
+        l1, t1, _ = step_1(params, cache_1, tok, first + i)
+        lsh, tsh, _ = step_sh(params, cache_sh, tok, first + i)
+        errs.append(check_logits(lsh, l1, MESH_LOGITS_TOL, MESH_LOGITS_TOL,
+                                 f"mesh granite decode step {i}"))
+        same_tokens.append(bool(torch.equal(tsh, t1)))
+        absmax = max(absmax, float(l1.abs().max()))
+        tok = t1[:, None]  # both routes fed the single route's tokens
+    report["decode_check"] = dict(cache_len=MESH_CHECK_CACHE, batch=DECODE_BATCH,
+                                  steps=MESH_CHECK_STEPS, max_abs_err=max(errs),
+                                  step_max_abs_err=errs, tokens_equal=same_tokens,
+                                  logit_absmax=absmax, tolerance=MESH_LOGITS_TOL)
+    emit("mesh_granite", part="decode_check", **report["decode_check"])
+    del cache_sh, cache_1, l1, lsh
+    free_device(device)
+
+    # one f32 forward through the sharded MoE
+    moe_sh = TM.make_sharded_moe_ffn(cfg, mesh, "data", "model")
+    halves = lambda lw, x: torch.cat([TM._moe_capacity(cfg, lw, h) for h in x.chunk(2)])  # noqa: E731
+    prompt = tokens((1, MESH_FORWARD_SEQ))
+    with torch.no_grad():
+        f_sh, f_sh_s = wall(lambda: T.forward(cfg, params, prompt, compute_dtype=torch.float32,
+                                              remat=False, moe_fn=moe_sh), device)
+        f_1, f_1_s = wall(lambda: T.forward(cfg, params, prompt, compute_dtype=torch.float32,
+                                            remat=False, moe_fn=halves), device)
+    report["forward"] = dict(tokens=MESH_FORWARD_SEQ, seconds=f_sh_s, single_seconds=f_1_s,
+                             max_abs_err=check_logits(f_sh, f_1, MESH_LOGITS_TOL, MESH_LOGITS_TOL,
+                                                      "mesh granite sharded-MoE forward"),
+                             logit_absmax=float(f_1.abs().max()), tolerance=MESH_LOGITS_TOL)
+    emit("mesh_granite", part="forward", **report["forward"])
+    del f_sh, f_1
+    params = tree_map(lambda t: t.to(torch.bfloat16), params)
+    free_device(device)
+
+    # timed in bf16: the sharded route, then the single route, on one cache
+    first = DECODE_SEQ - DECODE_STEPS
+    cache = filled_cache(DECODE_SEQ, first, torch.bfloat16)
+    start = tokens((DECODE_BATCH, 1))
+    timed = {}
+    for route, step in (("sharded", make_decode_step(cfg, torch.bfloat16, attn_fn=sp_attn,
+                                                     moe_fn=ws_moe)),
+                        ("single", make_decode_step(cfg, torch.bfloat16, attn_fn=flash_attn_fn))):
+        tok, secs = start, []
+        for i in range(DECODE_STEPS):
+            (logits, nxt, _), sec = wall(lambda: step(params, cache, tok, first + i), device)
+            if not torch.isfinite(logits).all():
+                raise AssertionError(f"mesh granite {route}: non-finite logits")
+            secs.append(sec)
+            tok = nxt[:, None]
+        timed[route] = dict(step_s=secs, tok_per_s=DECODE_BATCH * DECODE_STEPS / sum(secs),
+                            median_step_ms=float(np.median(secs)) * 1e3)
+    report["decode_timed"] = dict(batch=DECODE_BATCH, cache_len=DECODE_SEQ, steps=DECODE_STEPS,
+                                  sharded=timed["sharded"], single=timed["single"],
+                                  peak_allocated_bytes=peak_bytes(device))
+    emit("mesh_granite", part="decode_timed", **report["decode_timed"])
+    del params, cache
+    free_device(device)
+    return report
+
+
+def phase_mesh_gnn(store, seed, device) -> dict:
+    """Mesh part (c), on the main store: gin-tu at its published config,
+    one minibatch_lg step sampled from a pinned view, its gather and scatter
+    split over ``MESH_SHARDS`` node and edge shards
+    (``make_shardmap_gather``/``make_shardmap_scatter``, bf16 on the wire),
+    against the single-device step with ``comm_dtype=bfloat16``, both from
+    the same parameters with f32 AdamW moments: the loss within
+    ``MESH_GNN_LOSS_RTOL``, each first moment (0.1 x the gradient) within
+    ``MESH_GNN_GRAD_TOL`` of its leaf's largest magnitude (the limits of
+    ``tests/test_torch_dist_models.py``), or within 2 x ``MESH_SHARDS``
+    times the leaf's gap between the single route on an f32 wire and on
+    a bf16 one where that is larger; the same step with its edges
+    reversed is the control that must fall outside.  Step times are of a
+    second, warm call."""
+    import numpy as np
+    import torch
+
+    from repro_torch.graph.sampler import NeighborSampler, pad_subgraph
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import gnn as G
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_gnn_train_step
+
+    cfg = gnn_config(GNN_ARCH)
+    n_seeds, fanouts, d_feat = GNN_SEEDS, GNN_FANOUTS, GNN_D_FEAT
+    max_n = n_seeds * (1 + fanouts[0] + fanouts[0] * fanouts[1])
+    max_e = n_seeds * (fanouts[0] + fanouts[0] * fanouts[1])
+    mesh = make_mesh((MESH_SHARDS,), ("data",), device=device)
+    gather = G.make_shardmap_gather(mesh, "data", "data")
+    scatter = G.make_shardmap_scatter(mesh, "data", "data", max_n)
+    n = store.n_vertices
+    gen = torch.Generator(device=device).manual_seed(seed + 100)
+    rng = np.random.default_rng(seed + 100)
+    t0 = time.perf_counter()
+    with store.read_view() as view:
+        sub = NeighborSampler(view.scan, fanouts=list(fanouts), seed=seed + 100).sample(
+            rng.choice(n, n_seeds, replace=False).astype(np.int64))
+        nodes, src, dst, nmask, emask = pad_subgraph(sub, max_n, max_e)
+    sample_s = time.perf_counter() - t0
+    feats = torch.randn((max_n, d_feat), generator=gen, device=device)
+    feats = feats * torch.from_numpy(nmask).to(device)[:, None]
+    labels = (feats @ torch.randn(d_feat, generator=gen, device=device) > 0).int()
+    batch = [feats, torch.from_numpy(src).to(device), torch.from_numpy(dst).to(device),
+             torch.from_numpy(emask).to(device), labels,
+             (torch.arange(max_n, device=device) < sub.n_seeds).float()]
+    params = G.init_gnn(cfg, gen, d_feat, device=device)
+
+    def step(reverse: bool = False, **kw):
+        b = list(batch)
+        if reverse:
+            b[1], b[2] = b[2], b[1]
+        fn = make_gnn_train_step(cfg, n_nodes=max_n, lr=GNN_LR, **kw)
+        run = lambda: fn(params, adamw.init(params, moment_dtype=torch.float32), *b)  # noqa: E731
+        run()
+        (_, opt, met), sec = wall(run, device)
+        return float(met["loss"]), opt.mu, sec
+
+    sharded = step(gather_fn=gather, scatter_fn=scatter)
+    single = step(comm_dtype=torch.bfloat16)
+    f32_wire = step()
+    fault = step(reverse=True, gather_fn=gather, scatter_fn=scatter)
+    loss_err = abs(sharded[0] - single[0]) / abs(single[0])
+    errs = leaf_errors(sharded[1], single[1])
+    if not math.isfinite(sharded[0]) or loss_err > MESH_GNN_LOSS_RTOL:
+        raise AssertionError(f"mesh gnn: loss {sharded[0]} vs single {single[0]}")
+    gaps = leaf_errors(f32_wire[1], single[1])  # each leaf's bf16 sensitivity
+    limits = [max(MESH_GNN_GRAD_TOL, 2 * MESH_SHARDS * g) for g in gaps]
+    over = [(i, e, lim) for i, (e, lim) in enumerate(zip(errs, limits)) if not e <= lim]
+    if over:
+        raise AssertionError(f"mesh gnn: gradient leaves outside their limits: {over}")
+    fault_errs = leaf_errors(fault[1], single[1])
+    if all(e <= lim for e, lim in zip(fault_errs, limits)):
+        raise AssertionError("mesh gnn: reversed edges pass the gradient check")
+    report = dict(arch=GNN_ARCH, cell="minibatch_lg", mesh=dict(mesh.shape), max_nodes=max_n,
+                  max_edges=max_e, sampled_nodes=sub.n_nodes,
+                  sampled_edges=len(sub.merged_edges()[0]), sample_s=sample_s,
+                  loss=sharded[0], single_loss=single[0], loss_rel_err=loss_err,
+                  max_leaf_err=max(errs), leaf_errs=errs, tolerance=MESH_GNN_GRAD_TOL,
+                  leaf_limits=limits,
+                  limits_above_tol=sum(lim > MESH_GNN_GRAD_TOL for lim in limits),
+                  loss_rtol=MESH_GNN_LOSS_RTOL, reversed_max_leaf_err=max(fault_errs),
+                  f32_wire_leaf_errs=gaps,
+                  f32_wire_loss_rel_err=abs(f32_wire[0] - single[0]) / abs(single[0]),
+                  step_s=sharded[2], single_step_s=single[2])
+    emit("mesh_gnn", **report)
+    del feats, labels, batch, params, sharded, single, f32_wire, fault
+    free_device(device)
+    return report
+
+
+def phase_mesh_reduce(seed: int, device) -> dict:
+    """Mesh part (d): ``MESH_SHARDS`` data shards each take BST gradients
+    on a quarter of train_batch, compress them to int8 with error feedback
+    (``compress_grads``) and reduce them over the ``data`` axis
+    (``psum_compressed``); each leaf of the result within the reference's
+    2 x scale (scale = the largest |gradient| of the leaf over the shards,
+    over 127) of the plain f32 mean of the four gradients."""
+    import torch
+
+    from repro_torch.data.pipeline import RecsysBatches
+    from repro_torch.launch.collectives import P, shard
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import bst as B
+    from repro_torch.optim.compression import (
+        compress_grads,
+        init_error_feedback,
+        psum_compressed,
+    )
+    from repro_torch.optim.tree import tree_leaves
+    from repro_torch.train.step import bst_value_and_grad
+
+    _, cfg = model_configs()
+    mesh = make_mesh((MESH_SHARDS,), ("data",), device=device)
+    params = B.init_params(cfg, torch.Generator(device=device).manual_seed(seed + 110),
+                           device=device)
+    data = RecsysBatches(cfg.n_items, BST_TRAIN_BATCH, cfg.seq_len, cfg.n_other_feats,
+                         seed=seed + 1)[0]
+    keys = ("hist", "target", "other", "label")
+    parts = {k: shard(torch.from_numpy(data[k]).to(device), mesh, P("data")) for k in keys}
+    t0 = time.perf_counter()
+    grads, qs, ss = [], [], []
+    for k in range(mesh.size):
+        _, g = bst_value_and_grad(cfg, params, *[parts[key][k] for key in keys])
+        (q, s), _ = compress_grads(g, init_error_feedback(g))
+        grads.append(g)
+        qs.append(q)
+        ss.append(s)
+    means = psum_compressed(qs, ss, mesh, "data")
+    sync(device)
+    reduce_s = time.perf_counter() - t0
+    worst, payload, full = 0.0, 0, 0
+    for i, mean in enumerate(tree_leaves(means[0])):
+        shard_grads = [tree_leaves(g)[i] for g in grads]
+        plain = sum(shard_grads[1:], shard_grads[0]) / mesh.size
+        scale = max(float(g.abs().max()) for g in shard_grads) / 127
+        err = float((mean - plain).abs().max())
+        if not (err < 2 * scale or err == 0.0) or not bool(torch.isfinite(mean).all()):
+            raise AssertionError(f"mesh reduce leaf {i}: {err} not within 2 x scale {scale}")
+        if any(not torch.equal(m_k, mean) for m_k in (tree_leaves(m)[i] for m in means)):
+            raise AssertionError(f"mesh reduce leaf {i}: the shards' means differ")
+        worst = max(worst, err / (2 * scale) if scale else 0.0)
+        payload += tree_leaves(qs[0])[i].numel()
+        full += mean.numel() * 4
+    report = dict(shards=mesh.size, rows_per_shard=BST_TRAIN_BATCH // mesh.size,
+                  leaves=len(tree_leaves(means[0])), max_err_over_2scale=worst,
+                  int8_payload_bytes=payload, f32_payload_bytes=full, seconds=reduce_s)
+    emit("mesh_reduce", **report)
+    del params, grads, qs, ss, means, parts
+    free_device(device)
+    return report
+
+
+def phase_mesh_elastic(seed: int, device) -> dict:
+    """Mesh part (e): BST's parameters placed on a (4,) mesh by
+    ``checkpoint.elastic.reshard`` (``item_emb`` as ``P("data", None)``,
+    the rest replicated), saved as a checkpoint of full arrays, restored
+    and placed on a (2,) mesh: every leaf round-trips bitwise."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.checkpoint.elastic import reshard
+    from repro_torch.launch.collectives import P, unshard
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import bst as B
+    from repro_torch.optim.tree import tree_leaves, tree_map
+
+    _, cfg = model_configs()
+    params = B.init_params(cfg, torch.Generator(device=device).manual_seed(seed + 120),
+                           device=device)
+    host = tree_map(lambda t: t.cpu().numpy(), params)
+    specs = tree_map(lambda _: None, params)  # replicated: one copy a device
+    specs["item_emb"] = P("data", None)
+
+    def full(placed, mesh):
+        return tree_map(lambda parts, spec: unshard(parts, mesh, spec or P()).cpu().numpy(),
+                        placed, specs)
+
+    mesh4, mesh2 = (make_mesh((s,), ("data",), device=device) for s in (4, 2))
+    t0 = time.perf_counter()
+    placed4 = reshard(host, specs, mesh4)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt.save(tmp, 0, full(placed4, mesh4))
+        restored, _ = ckpt.restore(tmp, host)
+    placed2 = reshard(restored, specs, mesh2)
+    back = full(placed2, mesh2)
+    seconds = time.perf_counter() - t0
+    same = [np.array_equal(a.view(np.uint8), b.view(np.uint8))
+            for a, b in zip(tree_leaves(back), tree_leaves(host))]
+    rows4 = [tuple(t.shape) for t in placed4["item_emb"]]
+    rows2 = [tuple(t.shape) for t in placed2["item_emb"]]
+    if not all(same) or rows4 != [(cfg.n_items // 4, cfg.embed_dim)] * 4 \
+            or rows2 != [(cfg.n_items // 2, cfg.embed_dim)] * 2:
+        raise AssertionError("mesh elastic: the (4,) -> checkpoint -> (2,) round trip "
+                             "is not bitwise or misplaced")
+    report = dict(leaves=len(same), bitwise=True, item_emb_blocks_4=rows4,
+                  item_emb_blocks_2=rows2, seconds=seconds,
+                  bytes=int(sum(a.nbytes for a in tree_leaves(host))))
+    emit("mesh_elastic", **report)
+    del params, host, placed4, placed2, restored, back
+    free_device(device)
+    return report
+
+
 def run_models(seed: int, device, launches: dict) -> dict:
-    """Phases 7-13; returns the model kernels' records."""
+    """Phases 7-13 and the mesh phase's parts (a), (b), (d), (e); returns
+    the model kernels' records."""
     import torch
 
     free_device(device)
@@ -3063,7 +3544,9 @@ def run_models(seed: int, device, launches: dict) -> dict:
     counted("recsys_serve", launches, phase_recsys_serve, seed, device)
     peaks = [peak_bytes(device)]  # the later phases reset the peak when they start
     for path, phase in (("lm_prefill", phase_lm_prefill), ("lm_train", phase_lm_train),
-                        ("recsys_train", phase_recsys_train)):
+                        ("recsys_train", phase_recsys_train), ("mesh_bst", phase_mesh_bst),
+                        ("mesh_granite", phase_mesh_granite), ("mesh_reduce", phase_mesh_reduce),
+                        ("mesh_elastic", phase_mesh_elastic)):
         counted(path, launches, phase, seed, device)
         peaks.append(peak_bytes(device))
     if device.type == "cuda":
@@ -3099,6 +3582,15 @@ PATH_KERNELS = {
     "lm_train": (),
     "recsys_serve": ("embedding_bag",),
     "recsys_train": ("embedding_bag",),
+    # the mesh phase: the sharded lookup takes one embedding_bag launch a
+    # shard; SP attention, the sharded MoE, the GNN gather/scatter and the
+    # reshard are torch ops (mesh_granite's flash_decode launches are its
+    # single-device comparison route's)
+    "mesh_bst": ("embedding_bag",),
+    "mesh_granite": (),
+    "mesh_gnn": (),
+    "mesh_reduce": ("embedding_bag",),
+    "mesh_elastic": (),
 }
 
 
@@ -3135,6 +3627,7 @@ def run(seed: int, device) -> dict:
     counted("write_side", launches, phase_write_side, store, seed, device)
     prior_peak = max(prior_peak, counted("gnn_train", launches, phase_gnn_train, store,
                                          seed, device))
+    counted("mesh_gnn", launches, phase_mesh_gnn, store, seed, device)  # the mesh phase's (c)
     del store, r0, ops0, first
     counted("durability", launches, phase_durability, seed, device)
     tc_store, tc_info, tc_host = counted("triangles", launches, phase_triangles, TC_SCALE,

@@ -8,14 +8,14 @@ the card every lookup goes through the hand-written ``embedding_bag``
 kernel: ``embedding_lookup`` as bags of one id, ``user_tower`` as one bag
 of the whole history in ``mean`` mode.  The attention and MLP are plain
 torch, as they are plain XLA in the reference.  A ``lookup_fn(table, ids)
--> [*ids.shape, d]`` replaces the lookup (the row-sharded lookup of the
-multi-GPU slice, or a plain route to check against).
+-> [*ids.shape, d]`` replaces the lookup: ``make_sharded_lookup``'s
+row-sharded lookup over a mesh, or a plain route to check against.
 
 Training: ``embedding_lookup`` is an autograd function whose backward adds
 each looked-up row's gradient into a zero table gradient (``index_add_``),
 what autodiff of the reference's ``table[ids]`` gives; the rest of
-``forward`` and ``bst_loss`` take their gradients from autograd.  The
-sharded lookup comes with the multi-GPU slice.
+``forward`` and ``bst_loss`` take their gradients from autograd, the
+sharded lookup's through its collectives.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from ..configs.base import RecsysConfig
 from ..kernels.embedding_bag import embedding_bag
+from ..launch.collectives import P, axis_index, psum, shard, unshard
 from .common import dense_init, embed_init, fill_tree, rms_norm, upcast
 
 
@@ -92,6 +93,37 @@ def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``table[ids]`` in f32 as bags of one id: ids [...] -> [..., d],
     differentiable in ``table``."""
     return _Lookup.apply(table, ids).reshape(*ids.shape, table.shape[1])
+
+
+def make_sharded_lookup(mesh, axis: str = "model", batch_axes=None):
+    """Row-sharded lookup: local masked take + psum over the table axis.
+
+    The table's rows [V, d] shard over ``axis`` (shard ``k`` of the axis
+    holds rows ``[k V/n, (k+1) V/n)``); the ids' leading (batch) dim may
+    shard over ``batch_axes``.  Each shard looks its ids up in its rows
+    through ``embedding_lookup`` (the ``embedding_bag`` kernel on the
+    card), zeroes the ids outside them, and one psum of the
+    ``[*ids.shape, d]`` output over ``axis`` merges the shards.
+    Differentiable in the table: its gradient is that of the masked take
+    and the psum, each shard's rows from its own ``index_add_``.
+    """
+
+    def lookup(table, ids):
+        batch = batch_axes if batch_axes else None
+        ids_spec = P(batch, *([None] * (ids.dim() - 1)))
+        tabs = shard(table, mesh, P(axis, None))
+        ids_l = shard(ids, mesh, ids_spec)
+        rows = tabs[0].shape[0]  # local rows
+        outs = []
+        for k, shard_k in enumerate(axis_index(mesh, axis)):
+            local = ids_l[k] - shard_k * rows
+            ok = (local >= 0) & (local < rows)
+            out = embedding_lookup(tabs[k], torch.where(ok, local, 0))
+            outs.append(torch.where(ok[..., None], out, 0.0))
+        return unshard(psum(outs, mesh, axis), mesh, P(batch, *([None] * ids.dim())),
+                       device=table.device)
+
+    return lookup
 
 
 # ---------------------------------------------------------------------------

@@ -11,9 +11,11 @@ with ``index_add``, atomics on the card).  Ported from the reference's
 ``models/gnn.py``: the same parameter trees (``gnn_shapes``), the same
 arithmetic, and the same quirks — ``segment_mean`` counts padded edges,
 and PNA feeds ``-inf``/``+inf`` for masked edges into max/min and then
-zeroes what is not finite.  Gradients come from torch autograd.  The
-reference's ``make_shardmap_gather``/``make_shardmap_scatter`` (bf16
-collectives across devices) come with the multi-process shard plane.
+zeroes what is not finite.  Gradients come from torch autograd.  Every
+``*_apply`` takes a ``gather_fn(h, idx)`` and (PNA aside) a
+``scatter_fn(msgs, dst)`` in place of the plain edge gather and
+segment sum: ``make_shardmap_gather``/``make_shardmap_scatter`` split
+them over a mesh with bf16 on the wire, forward and backward.
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ from ..graph.segment_ops import (
     segment_std,
     segment_sum,
 )
+from ..launch.collectives import P, all_gather, psum, psum_scatter, shard, unshard
+from ..launch.mesh import axes_tuple
 from .common import dense_init, fill_tree
 
 
@@ -53,10 +57,112 @@ def _gather(h: torch.Tensor, idx: torch.Tensor, comm_dtype=None) -> torch.Tensor
     return h.to(comm_dtype).index_select(0, idx).to(h.dtype)
 
 
-def _defaults(scatter_fn, comm_dtype, n_nodes):
-    gather = partial(_gather, comm_dtype=comm_dtype)
+def _defaults(gather_fn, scatter_fn, comm_dtype, n_nodes):
+    """The edge gather and the segment sum onto nodes: the caller's
+    ``gather_fn``/``scatter_fn`` (a sharded form), else ``_gather`` in
+    ``comm_dtype`` and ``segment_sum``."""
+    gather = gather_fn or partial(_gather, comm_dtype=comm_dtype)
     scatter = scatter_fn or (lambda m, d: segment_sum(m, d, n_nodes))
     return gather, scatter
+
+
+# ---------------------------------------------------------------------------
+# edge gather and node scatter over a mesh, bf16 on the wire
+# ---------------------------------------------------------------------------
+def _bf16_gather(parts, dst_l, mesh, node_axes, dtype) -> list:
+    """Each shard's rows ``dst_l[k]`` of the all-gathered node blocks
+    ``parts`` (bf16 on the wire), in ``dtype``."""
+    wire = all_gather([t.to(torch.bfloat16) for t in parts], mesh, axes_tuple(node_axes),
+                      axis=0, tiled=True)
+    return [w.index_select(0, i.long()).to(dtype) for w, i in zip(wire, dst_l)]
+
+
+def _bf16_scatter(parts, idx_l, n_total: int, mesh, node_axes, edge_axes, dtype) -> list:
+    """Each shard's f32 segment sum of its edge rows onto ``n_total`` nodes,
+    merged with a bf16 reduce-scatter over ``node_axes`` and a bf16 psum
+    over the edge axes that are not node axes; blocks of ``dtype``."""
+    axes, e_axes = axes_tuple(node_axes), axes_tuple(edge_axes)
+    rest = tuple(a for a in e_axes if a not in axes)
+    accs = [segment_sum(p.float(), i, n_total).to(torch.bfloat16) for p, i in zip(parts, idx_l)]
+    out = psum_scatter(accs, mesh, axes, scatter_dimension=0, tiled=True)
+    if rest:  # edge shards on non-node axes contribute partials too
+        out = psum(out, mesh, rest)
+    return [o.to(dtype) for o in out]
+
+
+class _ShardGather(torch.autograd.Function):
+    """``h[idx]`` over a mesh: node blocks of h all-gathered in bf16, each
+    edge shard takes its rows.  Backward: an f32 segment sum per edge
+    shard, then a bf16 reduce-scatter onto the node blocks."""
+
+    @staticmethod
+    def forward(ctx, h, idx, mesh, node_axes, edge_axes):
+        ctx.save_for_backward(idx)
+        ctx.meta = (mesh, node_axes, edge_axes, h.shape[0], h.dtype, h.device)
+        outs = _bf16_gather(shard(h, mesh, P(node_axes, None)), shard(idx, mesh, P(edge_axes)),
+                            mesh, node_axes, h.dtype)
+        return unshard(outs, mesh, P(edge_axes, None), device=h.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        mesh, node_axes, edge_axes, n, dtype, device = ctx.meta
+        outs = _bf16_scatter(shard(g, mesh, P(edge_axes, None)), shard(idx, mesh, P(edge_axes)),
+                             n, mesh, node_axes, edge_axes, dtype)
+        return unshard(outs, mesh, P(node_axes, None), device=device), None, None, None, None
+
+
+class _ShardScatter(torch.autograd.Function):
+    """``segment_sum(msgs, dst, n_nodes)`` over a mesh: the transpose of
+    ``_ShardGather``, whose forward is its backward and vice versa."""
+
+    @staticmethod
+    def forward(ctx, msgs, dst, mesh, node_axes, edge_axes, n_nodes):
+        ctx.save_for_backward(dst)
+        ctx.meta = (mesh, node_axes, edge_axes, msgs.dtype, msgs.device)
+        outs = _bf16_scatter(shard(msgs, mesh, P(edge_axes, None)), shard(dst, mesh, P(edge_axes)),
+                             n_nodes, mesh, node_axes, edge_axes, msgs.dtype)
+        return unshard(outs, mesh, P(node_axes, None), device=msgs.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        (dst,) = ctx.saved_tensors
+        mesh, node_axes, edge_axes, dtype, device = ctx.meta
+        outs = _bf16_gather(shard(g, mesh, P(node_axes, None)), shard(dst, mesh, P(edge_axes)),
+                            mesh, node_axes, dtype)
+        return (unshard(outs, mesh, P(edge_axes, None), device=device),
+                None, None, None, None, None)
+
+
+def make_shardmap_gather(mesh, node_axes, edge_axes):
+    """``gather_fn(h [N, d], idx [E]) -> h[idx] [E, d]`` over ``mesh``:
+    h's rows split over ``node_axes``, the edges over ``edge_axes``.  The
+    node blocks travel as bf16 (all-gather), so the result is
+    ``h.bfloat16()[idx]`` in h's dtype; the backward sums each edge shard's
+    cotangent rows in f32 and merges them with a bf16 reduce-scatter over
+    ``node_axes`` (and a bf16 psum over the other edge axes).  N and E must
+    divide by their shard counts: the shards raise, and never pad.
+    (The reference pins bf16 by a bitcast to uint16, so that XLA cannot
+    move the convert past the collective; a ``.to(torch.bfloat16)`` before
+    the copy gives the same values.)"""
+
+    def gather_fn(h, idx):
+        return _ShardGather.apply(h, idx, mesh, node_axes, edge_axes)
+
+    return gather_fn
+
+
+def make_shardmap_scatter(mesh, node_axes, edge_axes, n_nodes: int):
+    """``scatter_fn(msgs [E, d], dst [E]) -> [n_nodes, d]``, the segment sum
+    over ``mesh``: each edge shard sums its messages in f32 onto all
+    ``n_nodes`` rows, and the partials merge with a bf16 reduce-scatter over
+    ``node_axes`` (and a bf16 psum over the other edge axes); the backward
+    all-gathers the node cotangent in bf16 and takes each edge's row."""
+
+    def scatter_fn(msgs, dst):
+        return _ShardScatter.apply(msgs, dst, mesh, node_axes, edge_axes, n_nodes)
+
+    return scatter_fn
 
 
 def _mlp_shapes(dims) -> Dict:
@@ -111,8 +217,8 @@ def _pna_shapes(cfg: GNNConfig, d_feat: int) -> Dict:
 # GCN (Kipf & Welling) — symmetric-normalized SpMM
 # ---------------------------------------------------------------------------
 def gcn_apply(cfg, params, h, src, dst, edge_mask, n_nodes: int,
-              comm_dtype=None, scatter_fn=None):
-    gather, scatter = _defaults(scatter_fn, comm_dtype, n_nodes)
+              comm_dtype=None, gather_fn=None, scatter_fn=None):
+    gather, scatter = _defaults(gather_fn, scatter_fn, comm_dtype, n_nodes)
     src, dst = src.long(), dst.long()
     ones = torch.ones(src.shape, dtype=torch.float32, device=src.device)
     deg = segment_sum(_mask(ones, edge_mask), dst, n_nodes) + 1.0  # +self loop
@@ -133,8 +239,8 @@ def gcn_apply(cfg, params, h, src, dst, edge_mask, n_nodes: int,
 # GIN (Xu et al.) — sum aggregation + MLP, learnable eps
 # ---------------------------------------------------------------------------
 def gin_apply(cfg, params, h, src, dst, edge_mask, n_nodes: int,
-              comm_dtype=None, scatter_fn=None):
-    gather, scatter = _defaults(scatter_fn, comm_dtype, n_nodes)
+              comm_dtype=None, gather_fn=None, scatter_fn=None):
+    gather, scatter = _defaults(gather_fn, scatter_fn, comm_dtype, n_nodes)
     src, dst = src.long(), dst.long()
     for i in range(cfg.n_layers):
         p = params[f"layer{i}"]
@@ -148,8 +254,8 @@ def gin_apply(cfg, params, h, src, dst, edge_mask, n_nodes: int,
 # GatedGCN (Bresson & Laurent) — edge-gated aggregation
 # ---------------------------------------------------------------------------
 def gatedgcn_apply(cfg, params, h, src, dst, edge_mask, n_nodes: int,
-                   comm_dtype=None, scatter_fn=None):
-    gather, scatter = _defaults(scatter_fn, comm_dtype, n_nodes)
+                   comm_dtype=None, gather_fn=None, scatter_fn=None):
+    gather, scatter = _defaults(gather_fn, scatter_fn, comm_dtype, n_nodes)
     src, dst = src.long(), dst.long()
     h = h @ params["embed"]["w"] + params["embed"]["b"]
     for i in range(cfg.n_layers):
@@ -171,8 +277,8 @@ def gatedgcn_apply(cfg, params, h, src, dst, edge_mask, n_nodes: int,
 # PNA (Corso et al.) — multi-aggregator x degree scalers
 # ---------------------------------------------------------------------------
 def pna_apply(cfg, params, h, src, dst, edge_mask, n_nodes: int,
-              mean_log_deg: float = 1.0, comm_dtype=None):
-    gather, _ = _defaults(None, comm_dtype, n_nodes)
+              mean_log_deg: float = 1.0, comm_dtype=None, gather_fn=None):
+    gather, _ = _defaults(gather_fn, None, comm_dtype, n_nodes)
     src, dst = src.long(), dst.long()
     h = h @ params["embed"]["w"] + params["embed"]["b"]
     ones = torch.ones(src.shape, dtype=torch.float32, device=src.device)
@@ -241,13 +347,13 @@ def init_gnn(cfg: GNNConfig, generator: torch.Generator, d_feat: int,
 
 def gnn_logits(cfg: GNNConfig, params, node_feat, src, dst, edge_mask, n_nodes: int,
                graph_ids: Optional[torch.Tensor] = None, n_graphs: int = 0,
-               comm_dtype=None, scatter_fn=None):
+               comm_dtype=None, gather_fn=None, scatter_fn=None):
     _, apply = GNN_FNS[cfg.kind]
     kw = {}
     if cfg.kind != "pna":
         kw["scatter_fn"] = scatter_fn  # pna's max/min aggregators keep the default
     h = apply(cfg, params["gnn"], node_feat, src, dst, edge_mask, n_nodes,
-              comm_dtype=comm_dtype, **kw)
+              comm_dtype=comm_dtype, gather_fn=gather_fn, **kw)
     if graph_ids is not None:  # graph-level task: mean pool then classify
         h = segment_mean(h, graph_ids, n_graphs)
     return h @ params["head"]["w"] + params["head"]["b"]

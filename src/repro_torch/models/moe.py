@@ -14,9 +14,12 @@ reference:
 - ``dense``: every token through every expert, masked by the combine
   weights (tests and tiny configs).
 
-Routing (softmax, top-k) is computed in at least f32.  The sharded forms of
-the reference (``make_weight_stationary_moe_ffn``, ``make_sharded_moe_ffn``)
-wait for the multi-GPU plane.
+Routing (softmax, top-k) is computed in at least f32.  The sharded forms
+over a mesh (``make_sharded_moe_ffn``: local dispatch per data shard and
+expert weights split on F; ``make_weight_stationary_moe_ffn``: the decode
+form, weights split on D and F, activations gathered) are ``moe_fn``s for
+``transformer.forward``/``decode_step``, written with
+:mod:`repro_torch.launch.collectives`.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ from typing import Dict
 import torch
 
 from ..configs.base import LMConfig
+from ..launch.collectives import P, all_gather, axis_index, psum, shard, unshard
+from ..launch.mesh import axes_tuple
 from .common import activation, upcast
 
 CAPACITY_FACTOR = 1.25
@@ -89,25 +94,39 @@ def capacity(n_tokens: int, cfg: LMConfig) -> int:
     return -(-c // 128) * 128
 
 
+def _capacity_slots(cfg: LMConfig, lw: Dict, x: torch.Tensor, c: int):
+    """Each expert's ``c`` slots over ``x``'s assignments: (the token of
+    each slot [E*C], which slots hold one [E, C], their combine weights
+    [E, C], 0 in empty slots)."""
+    T, K = x.shape[0], cfg.moe.top_k
+    tok_of, w_of, group_sizes = _dispatch(cfg, lw, x)
+    starts = torch.cumsum(group_sizes, 0) - group_sizes  # [E]
+    arange = torch.arange(c, device=x.device)
+    slot = torch.clamp(starts[:, None] + arange[None, :], 0, T * K - 1)  # [E, C]
+    valid = arange[None, :] < group_sizes[:, None]
+    return tok_of[slot].reshape(-1), valid, w_of[slot] * valid
+
+
+def _combine(y: torch.Tensor, rows: torch.Tensor, wslot: torch.Tensor,
+             n_tokens: int) -> torch.Tensor:
+    """Slot outputs y [E, C, d] weighted and added onto their tokens -> [T, d]."""
+    E, c, d = y.shape
+    out = torch.zeros((n_tokens, d), dtype=y.dtype, device=y.device)
+    return out.index_add_(0, rows, (y * wslot.to(y.dtype)[..., None]).reshape(E * c, d))
+
+
 def _moe_capacity(cfg: LMConfig, lw: Dict, x: torch.Tensor) -> torch.Tensor:
     """Capacity-based dispatch (GShard lineage): bounded memory (E*C*F),
     identical shapes for any routing; overflowing assignments are dropped."""
     T, D = x.shape
-    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    E = cfg.moe.n_experts
     act = activation(cfg.act)
-    tok_of, w_of, group_sizes = _dispatch(cfg, lw, x)
-    starts = torch.cumsum(group_sizes, 0) - group_sizes  # [E]
     c = capacity(T, cfg)
-    arange = torch.arange(c, device=x.device)
-    slot = torch.clamp(starts[:, None] + arange[None, :], 0, T * K - 1)  # [E, C]
-    valid = arange[None, :] < group_sizes[:, None]
-    rows = tok_of[slot].reshape(-1)  # [E*C] token ids
+    rows, valid, wslot = _capacity_slots(cfg, lw, x, c)
     xs = x.index_select(0, rows).reshape(E, c, D) * valid[..., None].to(x.dtype)
     h = act(torch.bmm(xs, lw["we_gate"])) * torch.bmm(xs, lw["we_up"])
     y = torch.bmm(h, lw["we_down"])  # [E, C, D]
-    wslot = (w_of[slot] * valid).to(y.dtype)  # [E, C]
-    out = torch.zeros((T, D), dtype=y.dtype, device=x.device)
-    return out.index_add_(0, rows, (y * wslot[..., None]).reshape(E * c, D)).to(x.dtype)
+    return _combine(y, rows, wslot, T).to(x.dtype)
 
 
 def _moe_dense(cfg: LMConfig, lw: Dict, x: torch.Tensor) -> torch.Tensor:
@@ -121,3 +140,78 @@ def _moe_dense(cfg: LMConfig, lw: Dict, x: torch.Tensor) -> torch.Tensor:
     y = torch.einsum("tef,efd->ted", h, lw["we_down"])
     return torch.einsum("ted,te->td", y, comb.to(y.dtype)).to(x.dtype)
 
+
+
+# ---------------------------------------------------------------------------
+# sharded forms over a mesh
+# ---------------------------------------------------------------------------
+_EXPERT_KEYS = ("router", "we_gate", "we_up", "we_down")
+
+
+def _shard_layer(lw: Dict, mesh, specs: Dict) -> list:
+    """This layer's router and expert weights cut by ``specs``: one dict a shard."""
+    parts = {k: shard(lw[k], mesh, specs[k]) for k in _EXPERT_KEYS}
+    return [{k: parts[k][i] for k in _EXPERT_KEYS} for i in range(mesh.size)]
+
+
+def make_weight_stationary_moe_ffn(cfg: LMConfig, mesh, dp, tp: str = "model"):
+    """Decode-path MoE: weights stay put, activations move.
+
+    The expert weights split ``[E, D/dp, F/tp]`` (``we_down`` ``[E, F/tp,
+    D/dp]``); the (tiny) token batch ``x [T, D]``, split over ``dp``, is
+    all-gathered, every shard dispatches the whole batch (capacity from the
+    gathered T), contracts its (D, F) tile, and the partials merge with
+    activation-sized psums: over ``dp`` for the gate and up products, over
+    ``tp`` for the down product, then an all-gather of the D slices.
+    Returns ``moe_fn(lw, x) -> [T, D]`` on x's device.
+    """
+    dp_axes = axes_tuple(dp)
+    n_dp = mesh.axis_size(dp_axes)
+    specs = {"router": P(), "we_gate": P(None, dp, tp), "we_up": P(None, dp, tp),
+             "we_down": P(None, tp, dp)}
+    act = activation(cfg.act)
+    E = cfg.moe.n_experts
+
+    def moe_fn(lw: Dict, x2d: torch.Tensor) -> torch.Tensor:
+        lw_l = _shard_layer(lw, mesh, specs)
+        xg = all_gather(shard(x2d, mesh, P(dp, None)), mesh, dp_axes, axis=0, tiled=True)
+        T, D = xg[0].shape
+        d_loc, c = D // n_dp, capacity(T, cfg)
+        slots, gates, ups = [], [], []
+        for k, idx in enumerate(axis_index(mesh, dp_axes)):
+            rows, valid, wslot = _capacity_slots(cfg, lw_l[k], xg[k], c)
+            xs = xg[k].index_select(0, rows).reshape(E, c, D) * valid[..., None].to(xg[k].dtype)
+            xs_loc = xs[:, :, idx * d_loc:(idx + 1) * d_loc]  # this shard's D tile
+            gates.append(torch.bmm(xs_loc, lw_l[k]["we_gate"]))
+            ups.append(torch.bmm(xs_loc, lw_l[k]["we_up"]))
+            slots.append((rows, wslot))
+        gates, ups = psum(gates, mesh, dp_axes), psum(ups, mesh, dp_axes)
+        outs = []
+        for k, (rows, wslot) in enumerate(slots):
+            y = torch.bmm(act(gates[k]) * ups[k], lw_l[k]["we_down"])  # [E, C, D/dp]
+            outs.append(_combine(y, rows, wslot, T))
+        out = all_gather(psum(outs, mesh, tp), mesh, dp_axes, axis=1, tiled=True)
+        return unshard(out, mesh, P(), device=x2d.device).to(x2d.dtype)
+
+    return moe_fn
+
+
+def make_sharded_moe_ffn(cfg: LMConfig, mesh, dp, tp: str = "model"):
+    """MoE block over a mesh: local dispatch per data shard + expert TP.
+
+    Tokens ``x [T, D]`` stay on their ``dp`` shard (each shard's capacity
+    dispatch is its own, over its T/dp tokens); the expert weights split
+    their hidden axis over ``tp`` (``[E, D, F/tp]``, ``we_down`` ``[E,
+    F/tp, D]``), and the down product's partials merge with one psum over
+    ``tp``.  Returns ``moe_fn(lw, x) -> [T, D]`` on x's device.
+    """
+    specs = {"router": P(), "we_gate": P(None, None, tp), "we_up": P(None, None, tp),
+             "we_down": P(None, tp, None)}
+
+    def moe_fn(lw: Dict, x2d: torch.Tensor) -> torch.Tensor:
+        lw_l = _shard_layer(lw, mesh, specs)
+        x_l = shard(x2d, mesh, P(dp, None))
+        ys = [_moe_capacity(cfg, lw_l[k], x_l[k]) for k in range(mesh.size)]
+        return unshard(psum(ys, mesh, tp), mesh, P(dp, None), device=x2d.device)
+
+    return moe_fn

@@ -3,7 +3,8 @@
 Ported from the reference's unified LM: GQA, RoPE (half-split rotation),
 RMSNorm, qk-norm, QKV bias, attention and final logit softcaps, pre+post
 norms, zero-centered norms, local/global layer windows, the embedding
-scale, and MoE FFNs (``models/moe.py``: granite, grok).  ``forward`` runs a
+scale, and MoE FFNs (``models/moe.py``: granite, grok; a ``moe_fn`` puts
+one of its sharded forms in their place).  ``forward`` runs a
 whole sequence through ``flash_attention`` (hand-written backward) with
 ``torch.utils.checkpoint`` around each ``remat_block`` of layers;
 ``lm_loss`` is the next-token cross entropy; ``decode_step`` feeds one
@@ -168,16 +169,18 @@ def _project_qkv(cfg: LMConfig, lw: Dict, x: torch.Tensor, positions: torch.Tens
     return apply_rope(q, sin, cos), apply_rope(k, sin, cos), v
 
 
-def _ffn(cfg: LMConfig, lw: Dict, x: torch.Tensor) -> torch.Tensor:
+def _ffn(cfg: LMConfig, lw: Dict, x: torch.Tensor, moe_fn=None) -> torch.Tensor:
     if cfg.moe is not None:
         b, s, d = x.shape
+        if moe_fn is not None:  # sharded dispatch (moe.make_sharded_moe_ffn)
+            return moe_fn(lw, x.reshape(b * s, d)).reshape(b, s, d)
         return moe_ffn(cfg, lw, x.reshape(b * s, d)).reshape(b, s, d)
     h = activation(cfg.act)(x @ lw["w_gate"]) * (x @ lw["w_up"])
     return h @ lw["w_down"]
 
 
 def _layer(cfg: LMConfig, lw: Dict, window: int, x: torch.Tensor, positions: torch.Tensor,
-           chunk: int) -> torch.Tensor:
+           chunk: int, moe_fn=None) -> torch.Tensor:
     zc = cfg.zero_centered_norm
     h = rms_norm(x, lw["attn_norm"], cfg.norm_eps, zc)
     q, k, v = _project_qkv(cfg, lw, h, positions)
@@ -189,7 +192,7 @@ def _layer(cfg: LMConfig, lw: Dict, window: int, x: torch.Tensor, positions: tor
         attn = rms_norm(attn, lw["post_attn_norm"], cfg.norm_eps, zc)
     x = x + attn
     h = rms_norm(x, lw["ffn_norm"], cfg.norm_eps, zc)
-    f = _ffn(cfg, lw, h)
+    f = _ffn(cfg, lw, h, moe_fn)
     if cfg.post_norms:
         f = rms_norm(f, lw["post_ffn_norm"], cfg.norm_eps, zc)
     return x + f
@@ -220,6 +223,7 @@ def forward(
     compute_dtype=torch.bfloat16,
     remat: bool = True,
     attn_chunk: Optional[int] = None,  # None -> 1024; <= 0 -> unchunked (full S)
+    moe_fn: Optional[Callable] = None,  # sharded MoE dispatch (moe.make_sharded_moe_ffn)
 ) -> torch.Tensor:
     """Full forward -> logits [B, S, vocab] in the compute dtype.
 
@@ -244,7 +248,7 @@ def forward(
     def block(x, first: int):
         for i in range(first, first + blk):
             lw = {name: t[i].to(cd) for name, t in layers.items()}
-            x = _layer(cfg, lw, windows[i], x, positions, chunk)
+            x = _layer(cfg, lw, windows[i], x, positions, chunk, moe_fn)
         return x
 
     for first in range(0, L, blk):
@@ -286,6 +290,7 @@ def decode_step(
     pos: int,  # write position (right-aligned batch)
     compute_dtype=torch.bfloat16,
     attn_fn: Optional[Callable] = None,
+    moe_fn: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, Dict]:
     """One decoding step: returns (logits [B, vocab] in at least f32, cache).
 
@@ -297,7 +302,9 @@ def decode_step(
 
     ``attn_fn(q, k_cache, v_cache, pos, window, cap) -> [B, 1, H, dh]``
     defaults to the plain ``decode_attention_ref``; serve/decode.py
-    injects the flash-decode kernel.
+    injects the flash-decode kernel or the sequence-parallel attention.
+    ``moe_fn(lw, x [T, D]) -> [T, D]`` replaces a MoE layer's
+    ``moe_ffn`` (``models/moe.py``'s sharded forms).
     """
     cd = compute_dtype
     zc = cfg.zero_centered_norm
@@ -323,7 +330,7 @@ def decode_step(
             attn = rms_norm(attn, lw["post_attn_norm"], cfg.norm_eps, zc)
         x = x + attn
         h = rms_norm(x, lw["ffn_norm"], cfg.norm_eps, zc)
-        f = _ffn(cfg, lw, h)
+        f = _ffn(cfg, lw, h, moe_fn)
         if cfg.post_norms:
             f = rms_norm(f, lw["post_ffn_norm"], cfg.norm_eps, zc)
         x = x + f

@@ -9,10 +9,12 @@ bitwise the functional arithmetic): a model whose weights, gradients and
 moments fill most of the card has no room for a second copy of them, so
 its ``params`` and ``opt_state`` moments are overwritten and returned.
 
-The reference's sharding arguments (``activation_spec``, ``carry_spec``,
-``logits_spec``, ``node_spec``, ``moe_fn``, ``gather_fn``, ``scatter_fn``,
-``comm_dtype``) and the layer-scan ``unroll`` have no single-device
-counterpart and are left out.
+The sharded forms plug in as the reference's do: ``moe_fn`` (the LM's MoE
+dispatch), ``gather_fn``/``scatter_fn`` (the GNN's edge gather and node
+scatter over a mesh) and ``comm_dtype`` (the plain gather's wire type).
+The reference's XLA sharding constraints (``activation_spec``,
+``carry_spec``, ``logits_spec``, ``node_spec``) and the layer-scan
+``unroll`` have no counterpart: a sharded form places its own data.
 """
 
 from __future__ import annotations
@@ -45,21 +47,23 @@ def value_and_grad(loss_of: Callable, params):
 
 def gnn_value_and_grad(cfg: GNNConfig, params, node_feat, src, dst, edge_mask, labels,
                        label_mask, n_nodes: int, graph_ids: Optional[torch.Tensor] = None,
-                       n_graphs: int = 0):
+                       n_graphs: int = 0, comm_dtype=None, gather_fn=None, scatter_fn=None):
     """``(loss, grads)`` of ``gnn_loss(gnn_logits(...))`` at ``params``."""
     def loss_of(p):
         logits = G.gnn_logits(cfg, p, node_feat, src, dst, edge_mask, n_nodes,
-                              graph_ids=graph_ids, n_graphs=n_graphs)
+                              graph_ids=graph_ids, n_graphs=n_graphs, comm_dtype=comm_dtype,
+                              gather_fn=gather_fn, scatter_fn=scatter_fn)
         return G.gnn_loss(logits, labels, label_mask)
 
     return value_and_grad(loss_of, params)
 
 
 def lm_value_and_grad(cfg: LMConfig, params, tokens, targets, compute_dtype=torch.bfloat16,
-                      attn_chunk=None):
+                      attn_chunk=None, moe_fn=None):
     """``(loss, grads)`` of ``lm_loss(forward(...), targets)`` at ``params``."""
     return value_and_grad(lambda p: T.lm_loss(T.forward(
-        cfg, p, tokens, compute_dtype=compute_dtype, attn_chunk=attn_chunk), targets), params)
+        cfg, p, tokens, compute_dtype=compute_dtype, attn_chunk=attn_chunk, moe_fn=moe_fn),
+        targets), params)
 
 
 def bst_value_and_grad(cfg: RecsysConfig, params, hist, target, other, labels,
@@ -78,6 +82,7 @@ def make_lm_train_step(
     max_grad_norm: float = 1.0,
     compute_dtype=torch.bfloat16,
     attn_chunk=None,
+    moe_fn=None,
 ):
     """Value and gradient, global-norm clipping, warmup-cosine LR at the
     optimizer's step, AdamW; metrics ``loss``, ``grad_norm``, ``lr``.
@@ -85,7 +90,8 @@ def make_lm_train_step(
 
     def step(params, opt_state, tokens, targets):
         loss, grads = lm_value_and_grad(cfg, params, tokens, targets,
-                                        compute_dtype=compute_dtype, attn_chunk=attn_chunk)
+                                        compute_dtype=compute_dtype, attn_chunk=attn_chunk,
+                                        moe_fn=moe_fn)
         gnorm = clip_by_global_norm_(grads, max_grad_norm)
         lr = warmup_cosine(opt_state.step, peak_lr, warmup, total)
         opt_state = adamw.update_(grads, opt_state, params, lr)
@@ -100,12 +106,20 @@ def make_gnn_train_step(
     lr: float = 1e-3,
     graph_level: bool = False,
     n_graphs: int = 0,
+    comm_dtype=None,
+    gather_fn=None,
+    scatter_fn=None,
 ):
+    """Value and gradient of the masked node loss, then AdamW without
+    weight decay; ``gather_fn``/``scatter_fn`` (``models/gnn.py``'s sharded
+    forms) replace the edge gather and the segment sum."""
+
     def step(params, opt_state, node_feat, src, dst, edge_mask, labels, label_mask,
              graph_ids=None):
         loss, grads = gnn_value_and_grad(
             cfg, params, node_feat, src, dst, edge_mask, labels, label_mask, n_nodes,
-            graph_ids=graph_ids if graph_level else None, n_graphs=n_graphs)
+            graph_ids=graph_ids if graph_level else None, n_graphs=n_graphs,
+            comm_dtype=comm_dtype, gather_fn=gather_fn, scatter_fn=scatter_fn)
         params, opt_state = adamw.update(grads, opt_state, params, lr, weight_decay=0.0)
         return params, opt_state, {"loss": loss}
 
