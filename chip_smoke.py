@@ -98,7 +98,11 @@ script exits non-zero without the last line):
              AdamW on the card against the CPU on the same gradients
              (1e-6); the split of a step (sampling, gather, step),
              steps/s over the timed steps (all but the profiled one),
-             commits, one profiled step's device busy time, peak bytes
+             commits, one profiled step's device busy time, peak bytes;
+             then one more step counted by ``roofline.cost`` (its aten
+             ops' FLOPs and bytes): the ``gnn_train_roofline`` line, a
+             ``RooflineReport`` with its useful share of
+             ``gnn_model_flops``
 5b. durability  a directed R-MAT store of scale 18 with the paper's skew
              tiers (64, 512): WAL with fsync and the compactor's checkpoint
              under one temporary directory, 200 pipelined writes, a fold
@@ -118,6 +122,32 @@ script exits non-zero without the last line):
              7-12, joined after them); then, uncounted, the warm call's
              split: host enumeration of the tile pairs, index uploads, the
              kernel's summed device time, the rest
+6m. multiprocess  on phase 6's store: the shard plane over processes
+             (``repro_torch.launch.plane``, one store a rank, each run's
+             ranks child processes within ``MP_TIMEOUT``): (a) ``nccl``,
+             one rank a visible card; (b) ``gloo``, ``MP_RANKS`` = 4 ranks
+             sharing ``cuda:0``; each rank builds the seeded store and a
+             4-shard plane over the ranks (shard k on rank k % world),
+             runs PageRank (pull and push), BFS, SSSP, WCC and SpMM (d =
+             128), commits 20 transactions on shard 1 and runs them again,
+             migrates subgraphs between the ranks' shards, commits 20 on
+             the moved subgraphs and runs them a third time; this process
+             runs the same through a one-process plane on the store
+             first, then the nccl run, then the gloo run, one after
+             another; all in deterministic mode: every rank's BFS, SSSP,
+             WCC, SpMM and pull PageRank bitwise this process's, push
+             PageRank within 1e-5 and rtol 1e-3, atol 1e-9, its placement
+             after the moves this process's; each rank's backend, world,
+             seconds of each step and ``leaf_spmm`` launches (above 0)
+6b. baselines  the paper's comparison stores (``core/baselines``: CSR,
+             the per-edge versioned store, VEC; host numpy) built from the
+             view's edges after 6m: 8,192 searches (half present) and
+             1,024 scans on each equal to the device ``edge_search_view``
+             and the view's CSR; 20 transactions on the store and the
+             per-edge store, a view pinned after each commit: its device
+             searches and its scans equal the per-edge store's at the
+             matching timestamp; host build seconds and ``memory_bytes``
+             beside the view's device bytes
 7. model kernels  flash_decode and embedding_bag against their plain
              versions at the model paths' shapes, timed as in phase 2;
              flash_decode's tensor-core route at the decode_32k path, at
@@ -167,7 +197,9 @@ script exits non-zero without the last line):
              outside.  Then ``launch/train.py --smoke`` for 6 steps with a
              checkpoint every 3 and ``--resume`` to 8: the checkpoint
              bitwise, the resumed run at step 6, its first loss the loss of
-             the saved parameters (1e-6)
+             the saved parameters (1e-6).  One more train_4k step counted by
+             ``roofline.cost``: the ``lm_train_roofline`` line, its useful
+             share of ``lm_model_flops``
 12. recsys_train  BST at train_batch (65,536 rows, ``RecsysBatches``), 10
              steps of ``make_bst_train_step``, one embedding_bag launch a
              step; step 0's gradients on 512 rows, card against CPU in
@@ -191,20 +223,27 @@ script exits non-zero without the last line):
              tokens through ``make_sharded_moe_ffn`` against the
              per-data-shard dispatch on one device, then decode_32k's
              shape in bf16 timed on both routes (tokens/s); (c)
-             ``mesh_gnn``, right after 5g on the main store: one gin-tu
-             minibatch_lg step through ``make_shardmap_gather``/
-             ``make_shardmap_scatter`` over 4 shards against the single
-             step with bf16 gathers (``MESH_GNN_*``; reversed edges must
-             fail); (d) ``mesh_reduce``: 4 data shards' BST gradients on
+             ``mesh_gnn``, right after 5g on the main store: gin-tu
+             minibatch_lg steps through ``make_shardmap_gather``/
+             ``make_shardmap_scatter`` over 4 shards on
+             ``MESH_GNN_BATCHES`` batches, bitwise against a plain
+             control that rounds as the shards do, the loss within
+             ``MESH_GNN_LOSS_RTOL`` of the single step's with bf16
+             gathers (reversed edges must fail); (d) ``mesh_reduce``:
+             4 data shards' BST gradients on
              a quarter of train_batch each, int8 ``compress_grads`` and
              ``psum_compressed``, within 2 x scale of the plain mean;
              (e) ``mesh_elastic``: BST placed on (4,) with ``item_emb`` as
              ``P("data", None)``, saved, restored and placed on (2,),
-             bitwise
-13. the ``kernels`` line, then the ``ok`` line.
+             bitwise.  Parts (a)-(c) each count one more sharded step
+             (BST's train_batch step, granite's decode_32k step, gin-tu's
+             minibatch_lg step) under a ``roofline.comm.CommCounter``: a
+             ``mesh_comm`` line of per-device collective bytes by op
+13. the ``total`` line (the script's seconds), the ``kernels`` line, the
+    card's name and power limit, then the ``ok`` line.
 
 The launch counters are set to 0 just before each of phases 3-6, 5s, 5a,
-5g, 5b, 8-12 and each mesh part, and read just after it (5g, 10, 11 and
+5g, 5b, 6m, 6b, 8-12 and each mesh part, and read just after it (5g, 10, 11 and
 the mesh parts b, c and e launch no hand kernel: segment ops, flash
 attention, MoE and the collectives are torch ops); every kernel a phase
 calls must have launched in it.  The ``kernels`` line's ``launches`` is the count on each
@@ -223,6 +262,11 @@ minibatch_lg's Reddit graph (232,965 x 114.6M); 20 steps, not the
 example's 300.  The LM cuts: prefill_32k's batch 32 -> 1 and train_4k's
 256 -> 2, to fit one card; the launcher runs at ``--smoke`` (a full-width
 checkpoint of f32 weights and bf16 moments is 26.4 GB of disk a save).
+
+Peaks and model FLOPs come from ``repro_torch.roofline.model`` (the
+H100 SXM data sheet's 3.35 TB/s and 67 TFLOP/s f32).  Phase 6m's cut:
+scale 18, not 22, so that five stores (four ranks and the nccl rank)
+build and fit beside the script's own; four ranks share one card.
 
 ``bound_ms`` counts the bytes the function needs on this run's data, not
 the whole tiles: a tile's live ids are a sorted prefix followed by
@@ -248,8 +292,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-CUDA_CORE_OPS_PER_S = 67e12  # f32 outside the tensor cores, NVIDIA data sheet
 SCALE = 22  # R-MAT scale of the main store (below 21 the writes cannot splice)
 TC_SCALE = 18  # R-MAT scale of the undirected triangle-count store
 D_FEATURES = 128  # SpMM width: a common GNN hidden width
@@ -318,15 +360,26 @@ MESH_FORWARD_SEQ = 2048  # the sharded-MoE forward's tokens
 # f32 logits, sharded against single route (rtol = atol): the launcher
 # check's limit; the two sum the same terms in other orders
 MESH_LOGITS_TOL = 3e-4
-# the GNN step through the bf16-wire gather/scatter against the single
-# route (tests/test_torch_dist_models.py's limits): loss, and each f32
-# first moment of its leaf's largest magnitude, or 2 x MESH_SHARDS times
-# the leaf's own bf16 sensitivity where larger.  The sensitivity is the
-# gap between the single route on an f32 and on a bf16 wire: how far one
-# bf16 rounding of each message moves the leaf.  The sharded route rounds
-# each aggregate up to 2n - 1 times (n shard partials, n - 1 bf16 adds).
-# Layer 0's w0 sums 169,984 rows with cancellation (5g's f32 check): one
-# rounding moves it 4.1e-2, the sharded step 4.5e-2 (H100, 700 W)
+# the GNN step through the bf16-wire gather/scatter (mesh part (c)), on
+# MESH_GNN_BATCHES sampled batches in deterministic mode, against a plain
+# control that rounds as the sharded route does: each of MESH_SHARDS equal
+# edge chunks summed in f32 and rounded to bf16, the chunks' sums added in
+# f32 in chunk order and rounded once (the reference's reduce-scatter).
+# Same roundings in the same order: loss and every f32 first moment
+# bitwise.  Against the single route with bf16 gathers (which rounds each
+# message once instead) only the loss is held, within MESH_GNN_LOSS_RTOL:
+# its leaves sat 0.03-0.08 of their largest magnitude from the sharded
+# route's on six batches on the H100, up to 4.7 times the single route's
+# own f32-vs-bf16 gap (PERF.md section 6), so no limit of the form
+# "factor x gap" holds them; they are reported.  Reversed edges must put
+# some leaf of the sharded step outside MESH_GNN_GRAD_TOL of the control.
+MESH_GNN_BATCHES = 4
+# phase 6m, the plane over processes: ranks of the gloo run (sharing the
+# card), shards, transactions on shard 1, and the time limit of each run
+MP_RANKS, MP_SHARDS, MP_TXNS, MP_TIMEOUT = 4, 4, 20, 600
+# phase 6b, the comparison stores: present (and as many absent) searches,
+# scans, transactions
+BASE_QUERIES, BASE_SCANS, BASE_TXNS = 4096, 1024, 20
 MESH_GNN_LOSS_RTOL, MESH_GNN_GRAD_TOL = 1e-3, 2.0 ** -6
 
 KERNELS = {
@@ -434,10 +487,47 @@ def time_ms(fn, device, reps: int, graph: bool = False) -> float:
 
 def bound(nbytes: float, ops: float) -> tuple:
     """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
-    operations over the CUDA-core rate."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    operations over the CUDA-core rate (``repro_torch.roofline.model``'s
+    H100 peaks)."""
+    from repro_torch.roofline.model import bound_s
+
+    t, by = bound_s(nbytes, ops)
+    return t * 1e3, by
+
+
+def hbm_ms(nbytes: float) -> float:
+    """Milliseconds the H100's HBM takes to move ``nbytes``."""
+    return bound(nbytes, 0)[0]
+
+
+def f32_peak_share(flops: float, seconds: float) -> float:
+    """``flops`` in ``seconds`` as a share of the f32 CUDA-core peak."""
+    from repro_torch.roofline.model import CUDA_CORE_F32_FLOPS
+
+    return flops / seconds / CUDA_CORE_F32_FLOPS
+
+
+def emit_roofline(phase: str, cost, count_s: float, arch: str, shape: str, dtype: str,
+                  model_flops: float, **measured) -> None:
+    """One line: the roofline of a step counted by ``roofline.cost`` (its
+    aten ops' FLOPs and bytes on one card), its useful-FLOP share against
+    the model's FLOPs, the hand kernels it launched (whose work the counts
+    leave out), and the phase's own measured step times beside it."""
+    report = cost.report(arch, shape, dtype, model_flops_total=model_flops)
+    emit(phase, **report.to_dict(), aten_ops=cost.ops, kernels_launched=cost.kernel_launches,
+         count_s=count_s, **measured)
+
+
+def emit_comm(model: str, step: str, mesh, fn) -> dict:
+    """``fn()`` (one more sharded step) under a ``CommCounter``: one line
+    with its collectives' per-device bytes by the ring model, by op."""
+    from repro_torch.roofline.comm import CommCounter
+
+    with CommCounter() as counter:
+        fn()
+    stats = counter.stats()
+    emit("mesh_comm", model=model, step=step, mesh=dict(mesh.shape), **stats)
+    return stats
 
 
 def live_lengths(rows):
@@ -536,20 +626,11 @@ def phase_build() -> None:
 # Data
 # ---------------------------------------------------------------------------
 def build_store(scale: int, seed: int, device, undirected: bool = False, leaf_tiers=None):
-    from repro_torch.configs import CONFIG
-    from repro_torch.core import RapidStore
-    from repro_torch.graph import rmat_edges_torch
+    """``(store, info)``: the seeded R-MAT store of ``launch.plane.rmat_store``
+    (the one every rank of phase ``multiprocess`` builds)."""
+    from repro_torch.launch.plane import rmat_store
 
-    t0 = time.perf_counter()
-    edges = rmat_edges_torch(scale, 16 << scale, seed, device)
-    t1 = time.perf_counter()
-    store = RapidStore.from_edges(
-        1 << scale, edges, undirected=undirected,
-        partition_size=CONFIG.partition_size, B=CONFIG.leaf_width, device=device,
-        leaf_tiers=leaf_tiers,
-    )
-    return store, {"generate_s": t1 - t0, "build_s": time.perf_counter() - t1,
-                   "n_vertices": 1 << scale, "edges_generated": int(len(edges))}
+    return rmat_store(scale, seed, device, undirected=undirected, leaf_tiers=leaf_tiers)
 
 
 def make_operands(view, seed: int, device, with_h: bool = True, n_pairs: int = N_PAIRS,
@@ -727,7 +808,7 @@ def phase_kernels(view, ops, device) -> dict:
            library_live_ms=time_ms(lambda: F.embedding_bag(live_ids, x2, starts, mode="sum"),
                                    device, 20),
            # every live id's 32-byte sector of x from HBM (no L2 reuse)
-           gathered_bound_ms=live * SECTOR / HBM_BYTES_PER_S * 1e3,
+           gathered_bound_ms=hbm_ms(live * SECTOR),
            live_entries=live, tile_bytes=N * B * 4, live_prefix_bytes=rows_bytes,
            distinct_x=touched, short_max_live=SHORT_TILE, **cuts)
     del live_ids, starts
@@ -771,7 +852,7 @@ def phase_kernels(view, ops, device) -> dict:
            plive * d, kernel_route=spmm_route(d, H.data_ptr()),
            checked_tiles=N, gathered_bytes=plive * d * 4, distinct_h_rows=ptouched,
            main_shape=[N, B, d], main_ms=main_ms, main_no_length_ms=main_no_length_ms,
-           main_bound_ms=main_bound, gathered_bound_ms=live * d * 4 / HBM_BYTES_PER_S * 1e3,
+           main_bound_ms=main_bound, gathered_bound_ms=hbm_ms(live * d * 4),
            main_distinct_h_rows=touched, main_gathered_bytes=live * d * 4,
            main_library_ms=main_library_ms, main_library_chunks=n_chunks)
     del idx, psw, pidx, ppsw, prow
@@ -1210,7 +1291,8 @@ def dropped_partial_rejected(plane, view, want, what: str) -> int:
     loads = [s.n_live for s in plane.sharded_coo(view).shards]
     k = int(np.argmin(loads))
     merge = distributed.merge
-    distributed.merge = lambda parts, op: merge([p for i, p in enumerate(parts) if i != k], op)
+    distributed.merge = lambda parts, op, ranks: merge(
+        [p for i, p in enumerate(parts) if i != k], op, ranks)
     try:
         bad = A.pagerank_view(view)
     finally:
@@ -1265,26 +1347,6 @@ def shard_layout(plane, view) -> list:
             for k in range(plane.n_shards)]
 
 
-def shard_writes(view, placement, shard: int, rng, n_txn: int):
-    """``n_txn`` (ins, dels) batches whose sources all lie in subgraphs
-    placed on ``shard``: random inserts and deletes of existing edges."""
-    import numpy as np
-
-    src, dst = view.to_coo()
-    n, p = view.n_vertices, view.p
-    sids = np.nonzero(np.asarray(placement) == shard)[0]
-    mine = np.nonzero(np.isin(src // p, sids))[0]
-    pick = rng.choice(mine, n_txn * N_DELS, replace=False)
-    batches = []
-    for t in range(n_txn):
-        u = rng.choice(sids, N_INS) * p + rng.integers(0, p, N_INS)
-        ins = np.stack([u, rng.integers(0, n, N_INS)], 1)
-        ins = ins[(ins[:, 0] != ins[:, 1]) & (ins[:, 0] < n)]
-        sel = pick[t * N_DELS:(t + 1) * N_DELS]
-        batches.append((ins, np.stack([src[sel], dst[sel].astype(np.int64)], 1)))
-    return batches
-
-
 def phase_shard_plane(store, seed, device) -> int:
     """Phase 5s on the main store: the five collectives through a
     ``PLANE_SHARDS``-shard plane (modulo, directed) against the
@@ -1297,6 +1359,7 @@ def phase_shard_plane(store, seed, device) -> int:
 
     from repro_torch.core.shard_plane import degree_balanced_placement, modulo_placement
     from repro_torch.kernels.spmm import leaf_spmm
+    from repro_torch.launch.plane import shard_writes
 
     cuda = device.type == "cuda"
     prior_peak = torch.cuda.max_memory_allocated(device) if cuda else 0
@@ -1337,7 +1400,8 @@ def phase_shard_plane(store, seed, device) -> int:
     # nothing and keep their bundles (R2 retires last, so it is the splice
     # source of the next view)
     placement = plane.placement_for(store.n_subgraphs)
-    batches = shard_writes(r2.view, placement, 1, np.random.default_rng(seed + 31), N_WRITES)
+    batches = shard_writes(r2.view, placement, 1, np.random.default_rng(seed + 31), N_WRITES,
+                           N_INS, N_DELS)
     store.end_read(r1)
     pred_coo = r2.view.assembly.sharded.coo
     store.end_read(r2)
@@ -1623,15 +1687,6 @@ def gnn_config(arch: str):
     return (registry.get_smoke_config if MODEL_SMOKE else registry.get_config)(arch)
 
 
-def gnn_flops(cfg, n_nodes: int, n_edges: int, d_feat: int) -> float:
-    """A train step's FLOPs by the reference's formula
-    (``repro/roofline/model.py:112``): per layer E*d messages and N*d^2
-    transforms, the first layer's N*d_feat*d, x3 for the backward."""
-    d = cfg.d_hidden
-    per_layer = 2.0 * n_edges * d + 2.0 * n_nodes * d * d
-    return 3.0 * (2.0 * n_nodes * d_feat * d + cfg.n_layers * per_layer)
-
-
 def leaf_errors(got, want) -> list:
     """Per leaf (``tree_leaves`` order): largest |got - want| over the
     leaf's largest |want|, in float64 on ``got``'s device."""
@@ -1821,6 +1876,8 @@ def phase_gnn_train(store, seed, device) -> int:
     from repro_torch.models import gnn as G
     from repro_torch.optim import adamw
     from repro_torch.optim.tree import tree_leaves, tree_map
+    from repro_torch.roofline.cost import count_step
+    from repro_torch.roofline.model import gnn_model_flops
     from repro_torch.train.step import make_gnn_train_step
 
     if store.write_pipeline is not None:
@@ -1918,6 +1975,7 @@ def phase_gnn_train(store, seed, device) -> int:
     commits = store.stats["commits"] - commits0
     timed_s = sum(sum(v) for v in parts.values())
     _, quiet_s = wall(run, device)  # the last step again, no writer holding the GIL
+    step_cost, count_s = wall(lambda: count_step(run)[1], device)  # once more, counted
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite GNN loss: {losses}")
     k = min(5, GNN_STEPS // 2)
@@ -1944,7 +2002,7 @@ def phase_gnn_train(store, seed, device) -> int:
             first["emask"], first["labels"], first["lmask"]), device)
         if not math.isfinite(float(om["loss"])):
             raise AssertionError(f"{arch}: non-finite loss")
-        others[arch] = dict(step_s=ostep_s, flops=gnn_flops(ocfg, max_n, max_e, d_feat))
+        others[arch] = dict(step_s=ostep_s, flops=gnn_model_flops(ocfg, max_n, max_e, d_feat))
     card = {arch: gnn_card_routes(c, p, first, max_n, device, f32_fault=arch == GNN_ARCH)
             for arch, (c, p) in models.items()}
     def host(t):
@@ -1982,7 +2040,10 @@ def phase_gnn_train(store, seed, device) -> int:
         others[arch].update(hold_gnn_step(models[arch][0], card[arch], cpu[arch]))
 
     med = {p: float(np.median(v)) for p, v in parts.items()}
-    flops = gnn_flops(cfg, max_n, max_e, d_feat)
+    flops = gnn_model_flops(cfg, max_n, max_e, d_feat)
+    emit_roofline("gnn_train_roofline", step_cost, count_s, GNN_ARCH, "minibatch_lg",
+                  "float32", flops, measured_step_s=med["step"],
+                  measured_step_without_writer_s=quiet_s)
     nodes_e = np.array(sizes)
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
     del feat_table, label_table, first, batch, models, card
@@ -2003,8 +2064,8 @@ def phase_gnn_train(store, seed, device) -> int:
          profiled_step_ms=prof_ms, device_busy_ms=busy_ms,
          device_idle_share=None if busy_ms is None else 1 - busy_ms / prof_ms,
          step_flops=flops, step_tflops_per_s=flops / med["step"] / 1e12,
-         f32_peak_share=flops / med["step"] / CUDA_CORE_OPS_PER_S,
-         f32_peak_share_without_writer=flops / quiet_s / CUDA_CORE_OPS_PER_S,
+         f32_peak_share=f32_peak_share(flops, med["step"]),
+         f32_peak_share_without_writer=f32_peak_share(flops, quiet_s),
          checks=checks, checkpoint_save_s=save_s, check_invariants_s=invariants_s,
          cpu_route_s=cpu_route_s, beside_cpu_route_s=beside_s,
          other_models=others, peak_allocated_bytes=peak)
@@ -2255,6 +2316,208 @@ def phase_triangles(scale: int, seed: int, device):
     return store, dict(scale=scale, **info, n_leaves=n_leaves, triangles=tc,
                        device_s=dev_s, device_warm_s=warm_s,
                        launches_per_call=launches), host
+
+
+# ---------------------------------------------------------------------------
+# Phase 6m: the shard plane over processes; phase 6b: the comparison stores
+# ---------------------------------------------------------------------------
+def rank_cmd(init: str, backend: str, seed: int, device, out: str) -> list:
+    """One rank of ``repro_torch.launch.plane`` on phase 6's store."""
+    return [sys.executable, "-m", "repro_torch.launch.plane", "--scale", str(TC_SCALE),
+            "--seed", str(seed), "--shards", str(MP_SHARDS), "--txns", str(MP_TXNS),
+            "--d", str(D_FEATURES), "--device", device.type, "--backend", backend,
+            "--deterministic", "--init", init, "--out", out]
+
+
+def hold_ranks(backend: str, got: dict, want: dict) -> dict:
+    """One rank's saved answers against this process's: the ``BITWISE``
+    answers by digest, push-PageRank by ``hold_pagerank``."""
+    from repro_torch.launch.plane import BITWISE, STEPS
+
+    errs = {}
+    for step in STEPS:
+        for key in BITWISE:
+            if got[f"{step}_digest"][key] != want[f"{step}_digest"][key]:
+                raise AssertionError(f"multiprocess {backend}: {step} {key} differs bitwise "
+                                     "from the one-process plane")
+        errs[step] = hold_pagerank(got[f"{step}_pagerank_push"],
+                                   want[f"{step}_pagerank_push"],
+                                   f"multiprocess {backend} {step} push")
+    return errs
+
+
+def phase_multiprocess(store, seed, device) -> dict:
+    """Phase 6m on phase 6's store (undirected R-MAT of ``TC_SCALE``): the
+    shard plane over processes, one store a rank (``launch.plane``, all
+    ranks of a run within ``MP_TIMEOUT``).  First this process runs the
+    sequence on ``store`` through a one-process plane; then (a) ``nccl``,
+    one rank a visible card; then (b) ``gloo``, ``MP_RANKS`` ranks sharing
+    ``cuda:0``: one after another, so that no run's seconds share the card
+    or the host with another's.  Every rank builds the seeded store,
+    attaches a ``MP_SHARDS``-shard plane over the ranks (shard k on rank
+    k % world) and runs PageRank (pull and push), BFS, SSSP, WCC and SpMM
+    (d = ``D_FEATURES``), commits ``MP_TXNS`` transactions on shard 1 and
+    runs them again, migrates subgraphs between the ranks' shards
+    (``cross_moves``), commits ``MP_TXNS`` on the moved subgraphs and runs
+    them a third time.  All in deterministic mode (``index_add_`` in a
+    fixed order): every rank's BFS, SSSP, WCC, SpMM and pull-PageRank
+    bitwise this process's, push-PageRank within ``hold_pagerank``'s
+    limits, each rank's placement after the moves this process's, its
+    migrated view rebuilt across the epoch, its ``leaf_spmm`` launches
+    above 0."""
+    import os
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch.mesh import make_shard_mesh
+    from repro_torch.launch.plane import BITWISE, drive, spawn_ranks, summary
+
+    path = [str(ROOT / "src")] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+                                  if p]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(path))
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        one, one_s = wall(lambda: drive(store, make_shard_mesh(MP_SHARDS, device=device),
+                                        seed, MP_TXNS, D_FEATURES), device)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    want = summary(one)
+    emit("multiprocess", backend="one process", world=1, seconds=one_s,
+         **{k: v for k, v in want.items() if k.endswith("_s") or k.startswith("uploads")},
+         moves=len(one["moves"]), migration_rebuilds=one["migration_rebuilds"],
+         leaf_spmm_launches=one["leaf_spmm_launches"])
+    # nccl needs the card (a CPU rehearsal runs the gloo ranks alone)
+    worlds = {"nccl": torch.cuda.device_count()} if device.type == "cuda" else {}
+    worlds["gloo"] = MP_RANKS
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for backend, world in worlds.items():
+            outs, secs = wall(lambda: spawn_ranks(
+                rank_cmd(f"file://{tmp}/{backend}.init", backend, seed, device,
+                         f"{tmp}/{backend}"), world, MP_TIMEOUT, env=env), device)
+            ranks = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+            errs = []
+            for r, line in enumerate(ranks):
+                if (line["rank"], line["backend"], line["world"]) != (r, backend, world):
+                    raise AssertionError(f"multiprocess {backend}: rank {r} printed {line}")
+                if device.type == "cuda" and not line["leaf_spmm_launches"] > 0:
+                    raise AssertionError(f"multiprocess {backend}: rank {r} launched no "
+                                         "leaf_spmm")
+                got = torch.load(f"{tmp}/{backend}/rank{r}.pt")
+                if got["placement_migrated"] != one["placement_migrated"] or \
+                        got["migration_rebuilds"] != one["migration_rebuilds"]:
+                    raise AssertionError(f"multiprocess {backend}: rank {r}'s migration "
+                                         "differs from the one-process plane's")
+                errs.append(hold_ranks(backend, got, want))
+            report[backend] = dict(world=world, seconds=secs,
+                                   leaf_spmm_launches=[x["leaf_spmm_launches"] for x in ranks],
+                                   pagerank_push_errs=errs)
+            emit("multiprocess", backend=backend, world=world, seconds=secs,
+                 bitwise=list(BITWISE), pagerank_push_errs=errs, ranks=ranks)
+    return report
+
+
+def phase_baselines(store, seed, device) -> dict:
+    """Phase 6b on phase 6's store (after 6m's writes): the paper's
+    comparison stores (``repro_torch.core.baselines``, host numpy) built
+    from the view's edges: ``CSRGraph``, ``PerEdgeVersionedAdjacency`` and
+    ``VecStore``.  ``BASE_QUERIES`` present and as many absent edge
+    searches and ``BASE_SCANS`` scans on each, equal to the store's device
+    ``edge_search_view`` and to the view's CSR; then ``BASE_TXNS``
+    transactions on the store and on ``PerEdgeVersionedAdjacency``, a view
+    pinned at each commit: at the end every pinned view's searches (on the
+    card) and scans equal the per-edge store's at the matching timestamp.
+    Build seconds and ``memory_bytes()`` are host figures, printed beside
+    the view's device bytes."""
+    import numpy as np
+
+    from repro_torch.configs import CONFIG
+    from repro_torch.core.baselines import CSRGraph, PerEdgeVersionedAdjacency, VecStore
+    from repro_torch.kernels.leaf_search import edge_search_view
+
+    rng = np.random.default_rng(seed + 70)
+    with store.read_view() as view:
+        n = view.n_vertices
+        src, dst = view.to_coo()
+        edges = np.stack([src, dst.astype(np.int64)], 1)
+        csr = view.to_csr()
+        host = {}
+        for name, build in (("csr", lambda: CSRGraph.from_edges(n, edges)),
+                            ("per_edge", lambda: PerEdgeVersionedAdjacency.from_edges(n, edges)),
+                            ("vec", lambda: VecStore.from_edges(n, edges,
+                                                                CONFIG.partition_size))):
+            t0 = time.perf_counter()
+            host[name] = (build(), time.perf_counter() - t0)
+        pick = rng.choice(len(src), BASE_QUERIES, replace=False)
+        us = np.concatenate([src[pick], rng.integers(0, n, BASE_QUERIES)]).astype(np.int64)
+        vs = np.concatenate([dst[pick], rng.integers(0, n, BASE_QUERIES)]).astype(np.int64)
+        found, search_s = wall(lambda: edge_search_view(view, us, vs), device)
+        seg = [csr.indices[csr.offsets[u]:csr.offsets[u + 1]] for u in us]
+        want = np.array([bool(np.isin(v, s)) for v, s in zip(vs, seg)])
+        if not np.array_equal(found, want):
+            raise AssertionError("baselines: edge_search_view disagrees with the view's CSR")
+        scan_us = rng.choice(n, BASE_SCANS, replace=False)
+        report = {"searches": len(us), "present": int(found.sum()), "scans": BASE_SCANS,
+                  "device_search_s": search_s, "stores": {}}
+        blocks, coo = view.to_leaf_blocks_device(), view.to_coo_device()
+        device_bytes = sum(int(t.nbytes) for t in (blocks.src, blocks.rows, blocks.length)) \
+            + sum(int(t.nbytes) for t in coo)
+        for name, (b, build_s) in host.items():
+            t0 = time.perf_counter()
+            got = (b.search_many(us, vs) if name == "csr"
+                   else np.array([b.search(int(u), int(v)) for u, v in zip(us, vs)]))
+            searches_s = time.perf_counter() - t0
+            if not np.array_equal(got, found):
+                raise AssertionError(f"baselines: {name} searches differ from the store's")
+            t0 = time.perf_counter()
+            scans = [b.neighbors(u) if name == "csr" else b.scan(int(u)) for u in scan_us]
+            scans_s = time.perf_counter() - t0
+            for u, got_s in zip(scan_us, scans):
+                if not np.array_equal(got_s, csr.indices[csr.offsets[u]:csr.offsets[u + 1]]):
+                    raise AssertionError(f"baselines: {name} scan of {u} differs from the CSR")
+            memory = (b.offsets.nbytes + b.indices.nbytes if name == "csr"  # no memory_bytes
+                      else b.memory_bytes())
+            report["stores"][name] = dict(host_build_s=build_s, host_memory_bytes=int(memory),
+                                          host_searches_s=searches_s, host_scans_s=scans_s)
+        report["view_device_bytes"] = device_bytes
+        report["store_memory_bytes"] = store.memory_bytes()
+        txns = random_writes(view, rng, BASE_TXNS)
+
+    per_edge = host["per_edge"][0]
+    pinned = []
+    try:
+        for ins, dels in txns:
+            dset = set(map(tuple, dels.tolist()))
+            ins = np.array([e for e in ins.tolist() if tuple(e) not in dset], np.int64)
+            ts = store.apply(ins, dels)
+            per_edge.insert_edges(ins)
+            t_pe = per_edge.delete_edges(dels)
+            pinned.append((store.begin_read(), ts, t_pe, ins, dels))
+        checked = 0
+        for handle, ts, t_pe, ins, dels in pinned:
+            view = handle.view
+            if view.ts != ts:
+                raise AssertionError(f"baselines: the view pinned after commit {ts} "
+                                     f"is at {view.ts}")
+            q = np.concatenate([ins, dels])
+            got = edge_search_view(view, q[:, 0], q[:, 1])
+            want = np.array([per_edge.search(int(u), int(v), t_pe) for u, v in q])
+            if not np.array_equal(got, want):
+                raise AssertionError(f"baselines: searches at ts {ts} differ from the "
+                                     f"per-edge store's at {t_pe}")
+            for u in np.unique(q[:, 0])[:64]:
+                if not np.array_equal(view.scan(int(u)), per_edge.scan(int(u), t_pe)):
+                    raise AssertionError(f"baselines: scan of {u} at ts {ts} differs")
+            checked += len(q)
+    finally:
+        for handle, *_ in pinned:
+            store.end_read(handle)
+    report.update(txns=len(txns), timestamps=[(ts, t_pe) for _, ts, t_pe, _, _ in pinned],
+                  txn_searches_checked=checked)
+    emit("baselines", **report)
+    return report
 
 
 def hold_host_triangles(host: HostTriangles, info: dict) -> None:
@@ -2866,12 +3129,14 @@ def phase_lm_prefill(seed: int, device) -> dict:
 
 
 def train_flops(cfg, batch: int, seq: int) -> float:
-    """Model FLOPs of one train step: 6 x active parameters x tokens, plus
-    causal attention's 2 B S^2 H dh a layer forward (QK^T and PV over half
-    the square) times 3 for the backward; the recompute of remat is not
-    counted."""
+    """Model FLOPs of one train step: ``lm_model_flops`` (6 x active
+    parameters x tokens), plus causal attention's 2 B S^2 H dh a layer
+    forward (QK^T and PV over half the square) times 3 for the backward;
+    the recompute of remat is not counted."""
+    from repro_torch.roofline.model import lm_model_flops
+
     attn = 6.0 * batch * seq * seq * cfg.n_heads * cfg.d_head * cfg.n_layers
-    return 6.0 * cfg.n_active_params * batch * seq + attn
+    return lm_model_flops(cfg, batch, seq, train=True) + attn
 
 
 def lm_check_grads(cfg, params, batch, dev, dtype):
@@ -2904,6 +3169,8 @@ def phase_lm_train(seed: int, device) -> dict:
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw
     from repro_torch.optim.tree import tree_leaves
+    from repro_torch.roofline.cost import count_step
+    from repro_torch.roofline.model import lm_model_flops
     from repro_torch.train.step import make_lm_train_step
 
     cfg = granite_config()
@@ -2954,13 +3221,19 @@ def phase_lm_train(seed: int, device) -> dict:
         grad_norms=gnorms, step_s=step_s, median_step_s=median_s,
         tokens_per_s=tokens / median_s, model_flops=flops,
         flops_formula="6 * n_active_params * tokens + 6 * B * S^2 * H * dh * L",
-        f32_peak_share=flops / median_s / CUDA_CORE_OPS_PER_S,
+        f32_peak_share=f32_peak_share(flops, median_s),
         profiled_step_ms=prof_ms, device_busy_ms=busy_ms,
         busy_share_profiled=None if busy_ms is None else busy_ms / prof_ms,
         idle_share_profiled=None if busy_ms is None else 1.0 - busy_ms / prof_ms,
         param_bytes=sum(t.numel() * t.element_size() for t in tree_leaves(params)),
         peak_allocated_bytes=peak)
     emit("lm_train", **report)
+    # one more step, counted: its aten ops' FLOPs and bytes (remat included)
+    toks, tgts = (torch.from_numpy(data[0][k]).to(device) for k in ("tokens", "targets"))
+    step_cost, count_s = wall(lambda: count_step(step, params, opt, toks, tgts)[1], device)
+    emit_roofline("lm_train_roofline", step_cost, count_s, cfg.name, "train_4k", "float32",
+                  lm_model_flops(cfg, TRAIN_BATCH, TRAIN_SEQ, train=True),
+                  measured_step_s=median_s)
     del params, opt, box
     free_device(device)
 
@@ -3208,7 +3481,10 @@ def phase_mesh_bst(seed: int, device) -> dict:
                            loss=float(m_sh["loss"]), loss_rel_err=loss_err,
                            params_max_abs_err=worst)
     emit("mesh_bst", cell="train_batch", **report["train"])
-    del params, table, opt, p_sh, p_1, x
+    del p_sh, p_1
+    report["comm"] = emit_comm("bst", "train_batch", mesh, lambda: make_bst_train_step(
+        cfg, lookup_fn=lookup)(params, opt, *x))
+    del params, table, opt, x
     free_device(device)
     return report
 
@@ -3319,6 +3595,9 @@ def phase_mesh_granite(seed: int, device) -> dict:
                                   sharded=timed["sharded"], single=timed["single"],
                                   peak_allocated_bytes=peak_bytes(device))
     emit("mesh_granite", part="decode_timed", **report["decode_timed"])
+    sharded_step = make_decode_step(cfg, torch.bfloat16, attn_fn=sp_attn, moe_fn=ws_moe)
+    report["comm"] = emit_comm(cfg.name, "decode_32k", mesh,
+                               lambda: sharded_step(params, cache, start, first))
     del params, cache
     free_device(device)
     return report
@@ -3326,25 +3605,30 @@ def phase_mesh_granite(seed: int, device) -> dict:
 
 def phase_mesh_gnn(store, seed, device) -> dict:
     """Mesh part (c), on the main store: gin-tu at its published config,
-    one minibatch_lg step sampled from a pinned view, its gather and scatter
-    split over ``MESH_SHARDS`` node and edge shards
-    (``make_shardmap_gather``/``make_shardmap_scatter``, bf16 on the wire),
-    against the single-device step with ``comm_dtype=bfloat16``, both from
-    the same parameters with f32 AdamW moments: the loss within
-    ``MESH_GNN_LOSS_RTOL``, each first moment (0.1 x the gradient) within
-    ``MESH_GNN_GRAD_TOL`` of its leaf's largest magnitude (the limits of
-    ``tests/test_torch_dist_models.py``), or within 2 x ``MESH_SHARDS``
-    times the leaf's gap between the single route on an f32 wire and on
-    a bf16 one where that is larger; the same step with its edges
-    reversed is the control that must fall outside.  Step times are of a
-    second, warm call."""
+    ``MESH_GNN_BATCHES`` minibatch_lg steps each on a batch sampled from a
+    pinned view (its padded edge list shuffled), the gather and scatter
+    split over ``MESH_SHARDS`` node and edge shards (``make_shardmap_gather``/``make_shardmap_scatter``, bf16
+    on the wire), from one set of parameters with f32 AdamW moments.  In
+    deterministic mode (``index_add_`` in a fixed order) each step's loss
+    and first moments equal bitwise those of the plain control that makes
+    the sharded route's roundings (``MESH_GNN_BATCHES``' comment); its loss
+    is within ``MESH_GNN_LOSS_RTOL`` of the single step with bf16 gathers,
+    whose leaf errors, and the single route's own gap between an f32 and a
+    bf16 wire, are reported.  The first batch's sharded step with its edges
+    reversed must put some leaf outside ``MESH_GNN_GRAD_TOL`` of the
+    control.  Step times are of a second, warm call, outside
+    deterministic mode."""
+    import warnings
+
     import numpy as np
     import torch
 
     from repro_torch.graph.sampler import NeighborSampler, pad_subgraph
+    from repro_torch.graph.segment_ops import segment_sum
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import gnn as G
     from repro_torch.optim import adamw
+    from repro_torch.optim.tree import tree_leaves
     from repro_torch.train.step import make_gnn_train_step
 
     cfg = gnn_config(GNN_ARCH)
@@ -3352,64 +3636,130 @@ def phase_mesh_gnn(store, seed, device) -> dict:
     max_n = n_seeds * (1 + fanouts[0] + fanouts[0] * fanouts[1])
     max_e = n_seeds * (fanouts[0] + fanouts[0] * fanouts[1])
     mesh = make_mesh((MESH_SHARDS,), ("data",), device=device)
-    gather = G.make_shardmap_gather(mesh, "data", "data")
-    scatter = G.make_shardmap_scatter(mesh, "data", "data", max_n)
     n = store.n_vertices
-    gen = torch.Generator(device=device).manual_seed(seed + 100)
-    rng = np.random.default_rng(seed + 100)
-    t0 = time.perf_counter()
-    with store.read_view() as view:
-        sub = NeighborSampler(view.scan, fanouts=list(fanouts), seed=seed + 100).sample(
-            rng.choice(n, n_seeds, replace=False).astype(np.int64))
-        nodes, src, dst, nmask, emask = pad_subgraph(sub, max_n, max_e)
-    sample_s = time.perf_counter() - t0
-    feats = torch.randn((max_n, d_feat), generator=gen, device=device)
-    feats = feats * torch.from_numpy(nmask).to(device)[:, None]
-    labels = (feats @ torch.randn(d_feat, generator=gen, device=device) > 0).int()
-    batch = [feats, torch.from_numpy(src).to(device), torch.from_numpy(dst).to(device),
-             torch.from_numpy(emask).to(device), labels,
-             (torch.arange(max_n, device=device) < sub.n_seeds).float()]
-    params = G.init_gnn(cfg, gen, d_feat, device=device)
 
-    def step(reverse: bool = False, **kw):
+    def rounded_sum(x, idx, n_rows: int):
+        """The sum of ``x``'s rows onto rows ``idx``, rounded as the
+        sharded route rounds (``MESH_GNN_BATCHES``' comment)."""
+        acc = None
+        for xs, ids in zip(x.chunk(MESH_SHARDS), idx.chunk(MESH_SHARDS)):
+            part = segment_sum(xs.float(), ids, n_rows).to(torch.bfloat16).float()
+            acc = part if acc is None else acc + part
+        return acc.to(torch.bfloat16).to(x.dtype)
+
+    class Gather(torch.autograd.Function):  # the control's h[idx], bf16 on the wire
+        @staticmethod
+        def forward(ctx, h, idx):
+            ctx.save_for_backward(idx)
+            ctx.n_rows = h.shape[0]
+            return h.to(torch.bfloat16).index_select(0, idx.long()).to(h.dtype)
+
+        @staticmethod
+        def backward(ctx, g):
+            (idx,) = ctx.saved_tensors
+            return rounded_sum(g, idx, ctx.n_rows), None
+
+    class Scatter(torch.autograd.Function):  # the control's segment sum onto max_n rows
+        @staticmethod
+        def forward(ctx, msgs, dst):
+            ctx.save_for_backward(dst)
+            return rounded_sum(msgs, dst, max_n)
+
+        @staticmethod
+        def backward(ctx, g):
+            (dst,) = ctx.saved_tensors
+            return g.to(torch.bfloat16).index_select(0, dst.long()).to(g.dtype), None
+
+    def step_fn(**kw):
+        return make_gnn_train_step(cfg, n_nodes=max_n, lr=GNN_LR, **kw)
+
+    steps = {"sharded": step_fn(gather_fn=G.make_shardmap_gather(mesh, "data", "data"),
+                                scatter_fn=G.make_shardmap_scatter(mesh, "data", "data", max_n)),
+             "control": step_fn(gather_fn=Gather.apply, scatter_fn=Scatter.apply),
+             "single": step_fn(comm_dtype=torch.bfloat16),
+             "f32_wire": step_fn()}
+    params = G.init_gnn(cfg, torch.Generator(device=device).manual_seed(seed + 100), d_feat,
+                        device=device)
+
+    def sample(b: int):
+        """Batch ``b``: [feats, src, dst, emask, labels, lmask] and its size."""
+        gen = torch.Generator(device=device).manual_seed(seed + 101 + b)
+        rng = np.random.default_rng(seed + 101 + b)
+        with store.read_view() as view:
+            sub = NeighborSampler(view.scan, fanouts=list(fanouts), seed=seed + 101 + b).sample(
+                rng.choice(n, n_seeds, replace=False).astype(np.int64))
+            nodes, src, dst, nmask, emask = pad_subgraph(sub, max_n, max_e)
+        # the sampled edges fill the front of the padded list: shuffled, so
+        # that every edge shard holds real edges and the partials meet
+        perm = rng.permutation(max_e)
+        src, dst, emask = src[perm], dst[perm], emask[perm]
+        feats = torch.randn((max_n, d_feat), generator=gen, device=device)
+        feats = feats * torch.from_numpy(nmask).to(device)[:, None]
+        labels = (feats @ torch.randn(d_feat, generator=gen, device=device) > 0).int()
+        batch = [feats, torch.from_numpy(src).to(device), torch.from_numpy(dst).to(device),
+                 torch.from_numpy(emask).to(device), labels,
+                 (torch.arange(max_n, device=device) < sub.n_seeds).float()]
+        return batch, dict(sampled_nodes=sub.n_nodes, sampled_edges=len(sub.merged_edges()[0]))
+
+    def run(name: str, batch, reverse: bool = False):
         b = list(batch)
         if reverse:
             b[1], b[2] = b[2], b[1]
-        fn = make_gnn_train_step(cfg, n_nodes=max_n, lr=GNN_LR, **kw)
-        run = lambda: fn(params, adamw.init(params, moment_dtype=torch.float32), *b)  # noqa: E731
-        run()
-        (_, opt, met), sec = wall(run, device)
-        return float(met["loss"]), opt.mu, sec
+        _, opt, met = steps[name](params, adamw.init(params, moment_dtype=torch.float32), *b)
+        return float(met["loss"]), opt.mu
 
-    sharded = step(gather_fn=gather, scatter_fn=scatter)
-    single = step(comm_dtype=torch.bfloat16)
-    f32_wire = step()
-    fault = step(reverse=True, gather_fn=gather, scatter_fn=scatter)
-    loss_err = abs(sharded[0] - single[0]) / abs(single[0])
-    errs = leaf_errors(sharded[1], single[1])
-    if not math.isfinite(sharded[0]) or loss_err > MESH_GNN_LOSS_RTOL:
-        raise AssertionError(f"mesh gnn: loss {sharded[0]} vs single {single[0]}")
-    gaps = leaf_errors(f32_wire[1], single[1])  # each leaf's bf16 sensitivity
-    limits = [max(MESH_GNN_GRAD_TOL, 2 * MESH_SHARDS * g) for g in gaps]
-    over = [(i, e, lim) for i, (e, lim) in enumerate(zip(errs, limits)) if not e <= lim]
-    if over:
-        raise AssertionError(f"mesh gnn: gradient leaves outside their limits: {over}")
-    fault_errs = leaf_errors(fault[1], single[1])
-    if all(e <= lim for e, lim in zip(fault_errs, limits)):
-        raise AssertionError("mesh gnn: reversed edges pass the gradient check")
+    t0 = time.perf_counter()
+    first, first_size = sample(0)
+    sample_s = time.perf_counter() - t0
+    secs = {}
+    for name in ("sharded", "single"):
+        run(name, first)
+        _, secs[name] = wall(lambda: run(name, first), device)
+    comm = emit_comm(GNN_ARCH, "minibatch_lg", mesh, lambda: run("sharded", first))
+    batches, fault_err = [], None
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            # cuBLAS on one stream gives equal products for equal operands
+            warnings.filterwarnings("ignore", message=".*CuBLAS")
+            for b in range(MESH_GNN_BATCHES):
+                batch, size = (first, first_size) if b == 0 else sample(b)
+                sharded, control, single = (run(k, batch)
+                                            for k in ("sharded", "control", "single"))
+                same = sharded[0] == control[0] and all(
+                    torch.equal(x, y) for x, y in zip(tree_leaves(sharded[1]),
+                                                      tree_leaves(control[1])))
+                if not same:
+                    raise AssertionError(
+                        f"mesh gnn batch {b}: the sharded step differs from the control: loss "
+                        f"{sharded[0]} vs {control[0]}, leaves "
+                        f"{leaf_errors(sharded[1], control[1])}")
+                loss_err = abs(sharded[0] - single[0]) / abs(single[0])
+                if not math.isfinite(sharded[0]) or loss_err > MESH_GNN_LOSS_RTOL:
+                    raise AssertionError(f"mesh gnn batch {b}: loss {sharded[0]} vs single "
+                                         f"{single[0]}")
+                errs = leaf_errors(sharded[1], single[1])
+                row = dict(size, loss=sharded[0], single_loss=single[0], loss_rel_err=loss_err,
+                           bitwise_control=True, max_leaf_err_vs_single=max(errs),
+                           worst_leaf=int(np.argmax(errs)))
+                if b == 0:
+                    gaps = leaf_errors(run("f32_wire", batch)[1], single[1])
+                    row.update(leaf_errs_vs_single=errs, single_f32_wire_gaps=gaps)
+                    fault_errs = leaf_errors(run("sharded", batch, reverse=True)[1], control[1])
+                    if all(e <= MESH_GNN_GRAD_TOL for e in fault_errs):
+                        raise AssertionError("mesh gnn: reversed edges pass the gradient check")
+                    fault_err = max(fault_errs)
+                batches.append(row)
+    finally:
+        torch.use_deterministic_algorithms(was)
     report = dict(arch=GNN_ARCH, cell="minibatch_lg", mesh=dict(mesh.shape), max_nodes=max_n,
-                  max_edges=max_e, sampled_nodes=sub.n_nodes,
-                  sampled_edges=len(sub.merged_edges()[0]), sample_s=sample_s,
-                  loss=sharded[0], single_loss=single[0], loss_rel_err=loss_err,
-                  max_leaf_err=max(errs), leaf_errs=errs, tolerance=MESH_GNN_GRAD_TOL,
-                  leaf_limits=limits,
-                  limits_above_tol=sum(lim > MESH_GNN_GRAD_TOL for lim in limits),
-                  loss_rtol=MESH_GNN_LOSS_RTOL, reversed_max_leaf_err=max(fault_errs),
-                  f32_wire_leaf_errs=gaps,
-                  f32_wire_loss_rel_err=abs(f32_wire[0] - single[0]) / abs(single[0]),
-                  step_s=sharded[2], single_step_s=single[2])
+                  max_edges=max_e, sample_s=sample_s, batches=batches,
+                  loss_rtol=MESH_GNN_LOSS_RTOL, tolerance=MESH_GNN_GRAD_TOL,
+                  reversed_max_leaf_err=fault_err, step_s=secs["sharded"],
+                  single_step_s=secs["single"], comm=comm)
     emit("mesh_gnn", **report)
-    del feats, labels, batch, params, sharded, single, f32_wire, fault
+    del first, params, steps
     free_device(device)
     return report
 
@@ -3555,18 +3905,6 @@ def run_models(seed: int, device, launches: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-def counters():
-    from repro_torch.kernels.embedding_bag import embedding_bag
-    from repro_torch.kernels.flash_decode import flash_decode
-    from repro_torch.kernels.intersect import intersect_count
-    from repro_torch.kernels.leaf_search import leaf_search
-    from repro_torch.kernels.spmm import leaf_scan_reduce, leaf_spmm
-
-    return {"leaf_search": leaf_search, "leaf_scan_reduce": leaf_scan_reduce,
-            "leaf_spmm": leaf_spmm, "intersect_count": intersect_count,
-            "embedding_bag": embedding_bag, "flash_decode": flash_decode}
-
-
 # the kernels each counted phase calls: each must launch in its phase
 PATH_KERNELS = {
     "main": ("leaf_search", "leaf_scan_reduce", "leaf_spmm", "intersect_count"),
@@ -3577,6 +3915,9 @@ PATH_KERNELS = {
     "gnn_train": (),  # segment ops are torch ops: no hand kernel on this path
     "durability": ("leaf_search", "leaf_scan_reduce", "leaf_spmm", "intersect_count"),
     "triangles": ("intersect_count",),
+    # this process's one-process plane (each rank counts its own launches)
+    "multiprocess": ("leaf_spmm",),
+    "baselines": ("leaf_search",),
     "lm_serve": ("flash_decode",),
     "lm_prefill": (),  # flash attention and MoE are torch ops: no hand kernel
     "lm_train": (),
@@ -3598,7 +3939,9 @@ def counted(path: str, launches: dict, fn, *args):
     """``fn(*args)`` with every launch counter set to 0 just before and read
     just after into ``launches[path]``; raises if a kernel of the path
     never launched."""
-    wrappers = counters()
+    from repro_torch.kernels.runtime import launch_counters
+
+    wrappers = launch_counters()
     for w in wrappers.values():
         w.launches = 0
     result = fn(*args)
@@ -3635,6 +3978,8 @@ def run(seed: int, device) -> dict:
     try:
         triangle_split(tc_store, tc_info, device)
         phase_shard_symmetric(tc_store, device)
+        counted("multiprocess", launches, phase_multiprocess, tc_store, seed, device)
+        counted("baselines", launches, phase_baselines, tc_store, seed, device)
         del tc_store
         if device.type == "cuda":
             emit("memory", phases="1-6", peak_allocated_bytes=max(
@@ -3677,6 +4022,7 @@ def main(argv=None) -> int:
          n_candidates=N_CANDIDATES, gnn=GNN_ARCH, gnn_seeds=GNN_SEEDS,
          gnn_fanouts=GNN_FANOUTS, gnn_d_feat=GNN_D_FEAT, gnn_steps=GNN_STEPS)
     kernels = run(args.seed, device)
+    emit("total", seconds=time.monotonic() - START)
     order = list(KERNELS)
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path"]

@@ -1,4 +1,4 @@
-"""Distributed analytics over sharded edge lists, in one process.
+"""Distributed analytics over sharded edge lists.
 
 The store's subgraph partitioning is exactly a distribution unit: subgraph
 ``sid`` (vertex block) maps to a shard by the placement policy, so the COO
@@ -6,12 +6,19 @@ materialization of a snapshot shards by source-vertex block.  Each
 ``make_*`` function below returns a function over per-shard lists of
 tensors (``srcs[k]`` on shard ``k``'s device): every shard reduces its
 local edges into a full-width vector on its own device, and the partials
-merge in shard order ``0 .. K-1`` on shard 0's device (sum, max or min —
-the vertex-cut pattern); the merged vector is copied back to each shard's
-device for the next iteration, a no-op when the shards share one card.  Frontier
-and rank vectors are replicated, edges stay on their shards, so what moves
-between devices per iteration is O(n_vertices), independent of the edge
-count.  Loops read one convergence flag per iteration, after the merge.
+merge in shard order on the first shard's device (sum, max or min — the
+vertex-cut pattern, :func:`repro_torch.launch.collectives.merge`); the
+merged vector is copied back to each shard's device for the next
+iteration, a no-op when the shards share one card.  Frontier and rank
+vectors are replicated, edges stay on their shards, so what moves between
+devices per iteration is O(n_vertices), independent of the edge count.
+Loops read one convergence flag per iteration, after the merge.
+
+Across processes (``ranks``, a
+:class:`~repro_torch.launch.collectives.RankGroup`), the lists hold this
+rank's shards only, and each merge ends with a ``dist.all_reduce`` of
+the rank's merged vector: every rank then holds the same vector, so the
+loops take the same number of iterations on every rank.
 
 Padding contract
 ----------------
@@ -37,10 +44,12 @@ of re-sharding host COO arrays per call, through these same functions).
 
 from __future__ import annotations
 
-from typing import Callable, List, Sequence, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
+
+from ..launch.collectives import merge, replicate
 
 _I32_MIN = -(2**31)
 _I32_MAX = 2**31 - 1
@@ -101,24 +110,6 @@ def _segment_reduce(vals: torch.Tensor, key: torch.Tensor, n: int, op: str,
     return out.scatter_reduce_(0, key, vals, op, include_self=False)[:n]
 
 
-def merge(parts: Sequence[torch.Tensor], op: Callable) -> torch.Tensor:
-    """The collective: per-shard partials combined in shard order on shard
-    0's device (``op`` is ``torch.add``, ``torch.maximum`` or
-    ``torch.minimum``), in place into ``parts[0]``: the partials are the
-    caller's own temporaries."""
-    out = parts[0]
-    for p in parts[1:]:
-        op(out, p.to(out.device), out=out)
-    return out
-
-
-def replicate(x: torch.Tensor, devices: Sequence[torch.device]) -> List[torch.Tensor]:
-    """``x`` on each shard's device: one copy per distinct device, none for
-    a shard on ``x``'s own device."""
-    copies = {x.device: x}
-    return [copies.setdefault(d, x.to(d)) for d in devices]
-
-
 def _scatter_keys(ids, valids, n):
     return [x.long() if v is None else masked_key(x, v, n) for x, v in zip(ids, valids)]
 
@@ -127,7 +118,8 @@ def _gather_indices(ids, valids):
     return [x.long() if v is None else _gather_index(x, v) for x, v in zip(ids, valids)]
 
 
-def make_pagerank(n: int, iters: int = 10, damping: float = 0.85, pull: bool = False):
+def make_pagerank(n: int, iters: int = 10, damping: float = 0.85, pull: bool = False,
+                  ranks=None):
     """PageRank over edge shards: ``pr(srcs, dsts, valids) -> [n] f32``.
 
     ``pull=False`` is the classic push form: gather at src, scatter by dst,
@@ -146,7 +138,7 @@ def make_pagerank(n: int, iters: int = 10, damping: float = 0.85, pull: bool = F
         devs = [s.device for s in srcs]
         skey = _scatter_keys(srcs, valids, n)
         deg = merge([torch.bincount(k, minlength=n + 1)[:n].to(torch.float32)
-                     for k in skey], torch.add)
+                     for k in skey], torch.add, ranks)
         inv_deg = torch.where(deg > 0, 1.0 / torch.clamp(deg, min=1.0), 0.0)
         p = torch.full((n,), 1.0 / n, dtype=torch.float32, device=deg.device)
         if pull:
@@ -156,7 +148,7 @@ def make_pagerank(n: int, iters: int = 10, damping: float = 0.85, pull: bool = F
         for _ in range(iters):
             pd = replicate(p * inv_deg, devs)
             agg = merge([_segment_sum(_live(v, x[g], 0.0), k, n)
-                         for x, v, g, k in zip(pd, valids, gather, key)], torch.add)
+                         for x, v, g, k in zip(pd, valids, gather, key)], torch.add, ranks)
             dangling = torch.where(deg == 0, p, 0.0).sum()
             p = _pr_step(agg, dangling, n, damping)
         return p
@@ -164,7 +156,7 @@ def make_pagerank(n: int, iters: int = 10, damping: float = 0.85, pull: bool = F
     return pr
 
 
-def make_bfs(n: int):
+def make_bfs(n: int, ranks=None):
     """Level-synchronous BFS, replicated frontier, sharded edges:
     ``bfs(srcs, dsts, valids, root) -> [n] int32`` levels (-1 unreached).
     Max-merges are order-free, so any sharding equals ``bfs_coo`` (this
@@ -183,7 +175,8 @@ def make_bfs(n: int):
             fr = replicate(frontier, devs)
             hit = merge([_segment_reduce(_live(v, f[g], False).to(torch.int32), k, n,
                                          "amax", _I32_MIN)
-                         for f, v, g, k in zip(fr, valids, gsrc, dkey)], torch.maximum)
+                         for f, v, g, k in zip(fr, valids, gsrc, dkey)], torch.maximum,
+                        ranks)
             frontier = (hit > 0) & (level < 0)
             level = torch.where(frontier, d + 1, level)
             d += 1
@@ -194,7 +187,7 @@ def make_bfs(n: int):
     return bfs
 
 
-def make_sssp(n: int):
+def make_sssp(n: int, ranks=None):
     """Bellman-Ford over sharded weighted edges, replicated distances:
     ``sssp(srcs, dsts, valids, ws, root) -> [n] f32``.  Min-merges are
     order-independent, so any sharding equals ``sssp_coo`` (this function
@@ -211,7 +204,7 @@ def make_sssp(n: int):
             dd = replicate(dist, devs)
             cand = merge([_segment_reduce(_live(v, x[g] + w, inf), k, n, "amin", inf)
                           for x, v, g, w, k in zip(dd, valids, gsrc, ws, dkey)],
-                         torch.minimum)
+                         torch.minimum, ranks)
             new = torch.minimum(dist, cand)
             changed = bool((new < dist).any())
             dist, it = new, it + 1
@@ -222,7 +215,7 @@ def make_sssp(n: int):
     return sssp
 
 
-def make_wcc(n: int):
+def make_wcc(n: int, ranks=None):
     """Label-propagation WCC over sharded edges: ``wcc(srcs, dsts, valids)
     -> [n] int32`` labels.  Each shard propagates labels across its local
     edges in BOTH directions (the symmetrization never leaves the shard),
@@ -242,7 +235,7 @@ def make_wcc(n: int):
                 fwd = _segment_reduce(_live(v, x[gs], _I32_MAX), dk, n, "amin", _I32_MAX)
                 bwd = _segment_reduce(_live(v, x[gd], _I32_MAX), sk, n, "amin", _I32_MAX)
                 parts.append(torch.minimum(fwd, bwd))
-            new = torch.minimum(labels, merge(parts, torch.minimum))
+            new = torch.minimum(labels, merge(parts, torch.minimum, ranks))
             new = new[new.long()]  # pointer-jump (path halving)
             changed = bool((new != labels).any())
             labels, it = new, it + 1
@@ -259,7 +252,5 @@ __all__ = [
     "make_sssp",
     "make_wcc",
     "masked_key",
-    "merge",
-    "replicate",
     "shard_edges",
 ]

@@ -62,6 +62,14 @@ runtime between any two stages:
    — their assembled bundles hold their own tensors; only a fresh
    old-timestamp assembly would re-upload.
 
+Over ranks (a plane on a mesh of several processes): every rank holds the
+whole store and plans the same moves; SEND and RECV run only on the rank
+that owns the destination shard, and each rank flips its own epoch.  The
+ranks' placements agree only while every rank runs ``plan_moves`` and
+``execute`` at the same point of the same commit sequence, so that its
+epoch takes the same timestamp: :meth:`Rebalancer.start` (a timer a rank)
+and ``queue_weight`` (a rank's own queue) are refused there.
+
 Durability: the WAL migrate record replays through
 :meth:`RapidStore.recover` into ``store._placement_log``;
 ``attach_shard_plane`` replays that log into the fresh plane, so a
@@ -152,6 +160,10 @@ class Rebalancer:
         self.plane = plane if plane is not None else store.shard_plane
         if self.plane is None:
             raise RuntimeError("rebalancer needs an attached shard plane")
+        if queue_weight and self.plane.ranks is not None:
+            # a rank's pipeline queue is its own: the ranks would plan apart
+            raise ValueError("queue_weight needs a plane in one process: over ranks "
+                             "every rank must plan the same moves")
         self.imbalance_threshold = float(imbalance_threshold)
         self.max_moves = max_moves
         # optional blend: shard load + queue_weight * pipeline queue depth
@@ -317,6 +329,9 @@ class Rebalancer:
         staged: Dict[tuple, tuple] = {}  # (sid, kind) -> (key, tiles)
         ok = True
         for ins in plan.instructions:
+            if ins.op in (MigrationInstType.SEND, MigrationInstType.RECV) \
+                    and not plane.is_local(ins.dst):
+                continue  # another process holds the destination shard
             if ins.op == MigrationInstType.SEND:
                 RESHARD_HOOKS.fire("hook_before_send", sid=ins.sid,
                                    kind=ins.kind, dst=ins.dst)
@@ -411,7 +426,14 @@ class Rebalancer:
 
     # -- background loop -----------------------------------------------------
     def start(self, interval: float = 1.0) -> None:
-        """Rebalance every ``interval`` seconds on a daemon thread."""
+        """Rebalance every ``interval`` seconds on a daemon thread.  Not on
+        a plane over ranks: each rank's timer would flip its epochs at
+        other points of its commit sequence, so the ranks' placements and
+        timestamps would part; there, every rank calls ``plan_moves`` and
+        ``execute`` (or ``rebalance_once``) at the same point."""
+        if self.plane.ranks is not None:
+            raise RuntimeError("a plane over ranks rebalances in step on every rank "
+                               "(plan_moves and execute), not on a timer")
         if self._thread is not None:
             raise RuntimeError("rebalancer already running")
         self._stop_event.clear()

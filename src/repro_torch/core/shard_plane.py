@@ -111,6 +111,26 @@ parity with the single-device ``*_view`` functions:
   the single-device answer to rounding.  On the card ``index_add_`` adds
   with atomics, so SpMM and PageRank agree within tolerance there.
 
+One process per card
+--------------------
+
+Given a mesh from :func:`repro_torch.launch.mesh.distributed_shard_mesh`,
+the plane spans the ranks of a ``torch.distributed`` group: shard ``k``
+belongs to rank ``k % world``.  Every rank holds the same store (the same
+seeded data and the same commits), so placement — the policy, the epochs
+and the rebalancer's moves — is computed alike on every rank and never
+crosses the wire.  A rank fetches, pins and splices tiles only for its
+own shards (``kind.shards[k]`` is ``None`` for another rank's shard), runs
+the collectives' local parts over them, and merges through the
+collectives' process-group backend: its own shards in shard order, then
+one ``dist.all_reduce`` (sum, max or min) across the ranks.  The bitwise
+contract above holds across processes: min and max merges are
+order-free, and SpMM's and pull-PageRank's sums give each vertex to one
+shard, so the other ranks add exact zeros; push-PageRank agrees within
+tolerance.  Per-edge operands (SSSP weights) follow the global COO order,
+so a rank counts another rank's subgraphs' edges on the host
+(``n_edges``) to find its own segments' global offsets.
+
 ``REPRO_DISABLE_SHARD_PLANE=1`` routes the ``*_view`` entry points back to
 the single-device paths.
 """
@@ -262,7 +282,8 @@ class ShardBundle:
 
 
 class ShardedKind:
-    """One materialization kind (COO or leaf blocks) across all shards."""
+    """One materialization kind (COO or leaf blocks) across all shards;
+    ``shards[k]`` is ``None`` where another process holds shard ``k``."""
 
     __slots__ = ("cap", "shards", "seg_counts")
 
@@ -274,7 +295,7 @@ class ShardedKind:
         self.seg_counts = seg_counts
 
     def nbytes(self) -> int:
-        return sum(s.nbytes() for s in self.shards)
+        return sum(s.nbytes() for s in self.shards if s is not None)
 
 
 class ShardedViewAssembly:
@@ -313,6 +334,13 @@ def _round_cap(n_live: int, floor: int) -> int:
     return cap
 
 
+def _host_count(snap, kind: str) -> int:
+    """Segment length of a subgraph this process holds no tiles of: its
+    edge count for COO (per-edge operands need every segment's global
+    offset); 0 for leaf tiles, whose counts nothing reads."""
+    return int(snap.n_edges) if kind == "coo" else 0
+
+
 def _on(device: torch.device):
     """The device context a hand-written kernel for ``device`` launches
     under (its launch goes to the current card, not the tensor's)."""
@@ -329,7 +357,10 @@ class ShardPlane:
     ``devices`` lists each shard's ``torch.device`` (repeats allowed);
     without it ``n_devices`` shards follow the store's device
     (:func:`~repro_torch.launch.mesh.shard_devices`).  A shard never sits on
-    another kind of device than the store's.  ``symmetric=True`` declares
+    another kind of device than the store's.  ``mesh`` (a 1-D mesh from
+    :func:`~repro_torch.launch.mesh.distributed_shard_mesh`, in place of
+    ``devices``) spreads the shards over processes: this rank holds only
+    its own shards' tiles (module docstring, "One process per card").  ``symmetric=True`` declares
     the store holds a symmetrized graph (every edge stored in both
     directions); PageRank then uses the pull form that is bitwise-equal to
     the single-device answer on the CPU.
@@ -345,10 +376,16 @@ class ShardPlane:
         n_devices: Optional[int] = None,
         policy: Union[str, Callable] = "modulo",
         symmetric: bool = False,
+        mesh=None,
     ) -> None:
         from ..launch.mesh import shard_devices
 
         self.store = store
+        self.ranks = None if mesh is None else mesh.ranks
+        if mesh is not None:
+            if devices is not None or (n_devices is not None and int(n_devices) != mesh.size):
+                raise ValueError("give a shard plane a mesh or its devices, not both")
+            devices = mesh.flat_devices
         if devices is None:
             devices = shard_devices(n_devices, store.device)
         elif n_devices is not None and int(n_devices) != len(devices):
@@ -362,6 +399,8 @@ class ShardPlane:
                 f"a {store.device.type} store cannot put shards on {wrong}"
             )
         self.n_shards = len(self.devices)
+        self._local = (set(range(self.n_shards)) if mesh is None
+                       else set(mesh.local_shards))
         self.symmetric = bool(symmetric)
         self._policy_name = policy if isinstance(policy, str) else "custom"
         self._policy = _POLICIES[policy] if isinstance(policy, str) else policy
@@ -430,6 +469,15 @@ class ShardPlane:
             chains[sid].head.n_edges
             for sid in range(lim) if int(placement[sid]) == k
         ))
+
+    def is_local(self, k: int) -> bool:
+        """True when this process holds shard ``k``'s tiles."""
+        return k in self._local
+
+    @property
+    def home(self) -> torch.device:
+        """The device this process merges on: its first shard's."""
+        return self.devices[min(self._local)]
 
     # -- placement -----------------------------------------------------------
     @property
@@ -589,13 +637,17 @@ class ShardPlane:
         seg_counts = np.zeros(S, np.int64)
         for sid, snap in enumerate(view.snaps):
             k = int(placement[sid])
+            if not self.is_local(k):
+                seg_counts[sid] = _host_count(snap, kind)
+                continue
             tiles = self._fetch(snap, k, fetch_fn)
             fetched[k][sid] = tiles
             seg_counts[sid] = int(tiles[0].shape[0])
-        lives = [int(sum(int(t[0].shape[0]) for t in fk.values())) for fk in fetched]
+        lives = [int(sum(int(t[0].shape[0]) for t in fetched[k].values()))
+                 for k in self._local]
         cap = _round_cap(max(lives), floor)
         shards = [self._bundle_of(k, fetched[k], kind, cap, view.B)
-                  for k in range(self.n_shards)]
+                  if self.is_local(k) else None for k in range(self.n_shards)]
         with self._lock:
             self.stats.full_builds += 1
         return ShardedKind(cap, shards, seg_counts)
@@ -617,6 +669,9 @@ class ShardPlane:
         fresh: Dict[int, Dict[int, tuple]] = {}
         for sid in dirty:
             k = int(placement[sid])
+            if not self.is_local(k):
+                seg_counts[sid] = _host_count(view.snaps[sid], kind)
+                continue
             tiles = self._fetch(view.snaps[sid], k, fetch_fn)
             fresh.setdefault(k, {})[sid] = tiles
             seg_counts[sid] = int(tiles[0].shape[0])
@@ -637,13 +692,16 @@ class ShardPlane:
             pred_kind.shards[k].n_live + sum(
                 int(t[0].shape[0]) - old_count(k, sid)
                 for sid, t in fresh.get(k, {}).items())
-            for k in range(self.n_shards)
+            for k in self._local
         ]
         cap = max(pred_kind.cap, _round_cap(max(lives), floor))
-        shards: List[ShardBundle] = []
+        shards: List[Optional[ShardBundle]] = []
         n_spliced = 0
         for k in range(self.n_shards):
             pred_shard = pred_kind.shards[k]
+            if pred_shard is None:  # another rank's shard
+                shards.append(None)
+                continue
             fresh_k = fresh.get(k, {})
             if not fresh_k:
                 if cap == pred_kind.cap:
@@ -752,8 +810,12 @@ class ShardPlane:
         ]
         touched = {int(placement[s]) for s in list(dirty) + moved}
         touched |= {int(pred_placement[s]) for s in moved}
+        touched &= self._local
         seg_counts = np.zeros(S, np.int64)
         seg_counts[:lim] = pred_kind.seg_counts[:lim]
+        for sid in list(dirty) + list(range(lim, S)):
+            if not self.is_local(int(placement[sid])):
+                seg_counts[sid] = _host_count(view.snaps[sid], kind)
         fetched: Dict[int, Dict[int, tuple]] = {k: {} for k in touched}
         for sid in range(S):
             k = int(placement[sid])
@@ -769,10 +831,12 @@ class ShardPlane:
             pred_kind.cap,
             _round_cap(max(lives_touched) if lives_touched else 0, floor),
         )
-        shards: List[ShardBundle] = []
+        shards: List[Optional[ShardBundle]] = []
         for k in range(self.n_shards):
             pred_shard = pred_kind.shards[k]
-            if k in touched:
+            if pred_shard is None:  # another rank's shard
+                shards.append(None)
+            elif k in touched:
                 shards.append(self._bundle_of(k, fetched[k], kind, cap, view.B))
             elif cap == pred_kind.cap:
                 # no subgraph moved in or out and none dirty: this shard's
@@ -820,7 +884,8 @@ class ShardPlane:
                 # shards: a re-attached plane with a different shard count
                 # or device order cannot splice (or reuse) the old tensors
                 and len(cand.shards) == self.n_shards
-                and all(b.device == d for b, d in zip(cand.shards, self.devices))
+                and all((b is None) != self.is_local(k) and (b is None or b.device == d)
+                        for k, (b, d) in enumerate(zip(cand.shards, self.devices)))
             ):
                 if np.array_equal(psh.placement, placement[: len(psh.placement)]):
                     pred_kind = cand
@@ -870,23 +935,29 @@ class ShardPlane:
 
     @staticmethod
     def _coo_lists(coo: ShardedKind) -> tuple:
-        """Per-shard (srcs, dsts, valids): each shard's live prefix."""
+        """Per-shard (srcs, dsts, valids): each of this process's shards'
+        live prefix, in shard order."""
         srcs, dsts, valids = [], [], []
         for s in coo.shards:
+            if s is None:
+                continue
             src, dst = s.live()
             srcs.append(src)
             dsts.append(dst)
             valids.append(s.valid[: s.n_live])
         return srcs, dsts, valids
 
-    def pagerank(self, view, iters: int = 10, damping: float = 0.85):
+    def pagerank(self, view, iters: int = 10, damping: float = 0.85,
+                 pull: Optional[bool] = None):
         """Collective PageRank over pinned shard tiles (module docstring
-        covers the pull-vs-push choice and the bitwise contract)."""
+        covers the pull-vs-push choice and the bitwise contract); ``pull``
+        picks the form, by default pull on a symmetric plane, else push."""
         from . import distributed
 
         coo = self.sharded_coo(view)
+        pull = self.symmetric if pull is None else bool(pull)
         fn = distributed.make_pagerank(view.n_vertices, iters=iters, damping=damping,
-                                       pull=self.symmetric)
+                                       pull=pull, ranks=self.ranks)
         return self._dispatch("pagerank", fn, *self._coo_lists(coo))
 
     def bfs(self, view, root: int):
@@ -894,7 +965,7 @@ class ShardPlane:
         from . import distributed
 
         coo = self.sharded_coo(view)
-        fn = distributed.make_bfs(view.n_vertices)
+        fn = distributed.make_bfs(view.n_vertices, ranks=self.ranks)
         return self._dispatch("bfs", fn, *self._coo_lists(coo), int(root))
 
     def _shard_edge_operand(self, coo: ShardedKind, w) -> list:
@@ -919,6 +990,8 @@ class ShardPlane:
             )
         parts = []
         for shard in coo.shards:
+            if shard is None:
+                continue
             shift = torch.from_numpy(g_off[shard.sids] - shard.offsets[:-1]).to(w.device)
             counts = torch.from_numpy(np.diff(shard.offsets)).to(w.device)
             idx = torch.repeat_interleave(shift, counts, output_size=shard.n_live)
@@ -935,7 +1008,7 @@ class ShardPlane:
 
         coo = self.sharded_coo(view)
         ws = self._shard_edge_operand(coo, w)
-        fn = distributed.make_sssp(view.n_vertices)
+        fn = distributed.make_sssp(view.n_vertices, ranks=self.ranks)
         srcs, dsts, valids = self._coo_lists(coo)
         return self._dispatch("sssp", fn, srcs, dsts, valids, ws, int(root))
 
@@ -945,7 +1018,7 @@ class ShardPlane:
         from . import distributed
 
         coo = self.sharded_coo(view)
-        fn = distributed.make_wcc(view.n_vertices)
+        fn = distributed.make_wcc(view.n_vertices, ranks=self.ranks)
         return self._dispatch("wcc", fn, *self._coo_lists(coo))
 
     def spmm(self, view, h):
@@ -953,30 +1026,32 @@ class ShardPlane:
 
         Each shard runs ``leaf_spmm`` — the hand-written kernel on the card
         — over its own tiles (each read over its live length); the compact
-        ``[tiles, d]`` outputs and their sources then go to shard 0's device
-        and sum by source vertex there, in shard order, with ``index_add_``
-        into one output.  Every source vertex lives on exactly one shard,
-        so each vertex's tiles add in the single-device route's order.
+        ``[tiles, d]`` outputs and their sources then go to the first
+        shard's device (:attr:`home`) and sum by source vertex there, in
+        shard order, with ``index_add_`` into one output; across processes
+        the ranks' outputs then add with one all-reduce.  Every source
+        vertex lives on exactly one shard, so each vertex's tiles add in
+        the single-device route's order and the other shards add zeros.
         """
-        from . import distributed
         from ..kernels.spmm import leaf_spmm
+        from ..launch.collectives import merge, replicate
 
         blocks = self.sharded_blocks(view)
         n = view.n_vertices
         h = torch.as_tensor(h, dtype=torch.float32)
-        hs = distributed.replicate(h, self.devices)
-        home = self.devices[0]
+        hs = replicate(h, self.devices)
+        home = self.home
 
         def run():
             out = torch.zeros((n, h.shape[1]), dtype=torch.float32, device=home)
             for shard, hk in zip(blocks.shards, hs):
-                if not shard.n_live:
+                if shard is None or not shard.n_live:
                     continue
                 src, rows, length = shard.live()
                 with _on(shard.device):
                     y = leaf_spmm(rows, hk, length)
                 out.index_add_(0, src.to(home), y.to(home))
-            return out
+            return merge([out], torch.add, self.ranks)  # other ranks add zeros
 
         return self._dispatch("spmm", run)
 

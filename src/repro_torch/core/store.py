@@ -467,6 +467,7 @@ class RapidStore:
         policy="modulo",
         symmetric: bool = False,
         devices=None,
+        mesh=None,
     ):
         """Attach a :class:`~repro_torch.core.shard_plane.ShardPlane`.
 
@@ -479,6 +480,9 @@ class RapidStore:
         ``k % n_cards`` (:func:`repro_torch.launch.mesh.shard_devices`).
         ``symmetric=True`` declares the store holds a symmetrized graph,
         enabling the pull-form PageRank (see the shard_plane docstring).
+        ``mesh`` (from :func:`repro_torch.launch.mesh.
+        distributed_shard_mesh`) spreads the shards over processes, one
+        store each: this process holds only its own shards' tiles.
 
         Any placement epochs in the store's durable log (earlier
         migrations, or WAL-replayed migrate records) are replayed into the
@@ -489,7 +493,7 @@ class RapidStore:
 
         plane = ShardPlane(
             self, devices=devices, n_devices=n_devices, policy=policy,
-            symmetric=symmetric,
+            symmetric=symmetric, mesh=mesh,
         )
         for ts, moves in self._placement_log:
             plane.record_epoch(ts, moves)

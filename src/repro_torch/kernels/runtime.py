@@ -153,6 +153,20 @@ def count_launch(wrapper) -> None:
         wrapper.launches += 1
 
 
+def launch_counters() -> Dict[str, object]:
+    """Every hand-written kernel's wrapper by name; each counts its own
+    launches in ``.launches``."""
+    from .embedding_bag import embedding_bag
+    from .flash_decode import flash_decode
+    from .intersect import intersect_count
+    from .leaf_search import leaf_search
+    from .spmm import leaf_scan_reduce, leaf_spmm
+
+    return {"leaf_search": leaf_search, "leaf_scan_reduce": leaf_scan_reduce,
+            "leaf_spmm": leaf_spmm, "intersect_count": intersect_count,
+            "embedding_bag": embedding_bag, "flash_decode": flash_decode}
+
+
 def check(err: int, what: str) -> None:
     """Raise if a launch function returned a non-zero ``cudaError_t``."""
     if err != 0:
@@ -185,6 +199,7 @@ __all__ = [
     "is_hopper",
     "kernel_fn",
     "kernel_lib",
+    "launch_counters",
     "on_cpu",
     "require_accelerator",
     "stream_ptr",

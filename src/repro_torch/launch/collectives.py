@@ -1,4 +1,4 @@
-"""Collectives over a :class:`~repro_torch.launch.mesh.Mesh`, in one process.
+"""Collectives over a :class:`~repro_torch.launch.mesh.Mesh`.
 
 The port's stand-in for ``shard_map``.  A sharded value is a list of
 per-shard tensors, element ``k`` on the mesh's device of flat shard ``k``;
@@ -16,10 +16,34 @@ collectives where the body calls ``jax.lax``'s:
 Each reduction combines a group's members in shard order on the group's
 first device, then places the result on every member's device: one tensor
 per distinct device, shared by the members on it (no copy on one card).
-A gather orders its pieces by ``axis_index``.  Everything is out of place
-and built from differentiable torch ops (slices, ``.to``, ``cat``, ``+``),
-so autograd runs through the collectives; their gradients are those of
-the same sums written on one device.
+bf16 and f16 parts accumulate in f32 and round once, at the end, as XLA's
+all-reduce does.  A gather orders its pieces by ``axis_index``.
+Everything is out of place and built from differentiable torch ops
+(slices, ``.to``, ``cat``, ``+``), so autograd runs through the
+collectives; their gradients are those of the same sums written on one
+device.  The shard plane's merges (:func:`merge`, :func:`replicate`) are
+the same reduction over a plain list of partials.
+
+Across processes.  A mesh from
+:func:`~repro_torch.launch.mesh.distributed_shard_mesh` spreads its shards
+over the ranks of a ``torch.distributed`` group (:class:`RankGroup`):
+shard ``k`` belongs to rank ``k % world``, and a sharded value holds
+tensors only for this rank's shards (``None`` for the others).  A rank
+first combines its own shards in shard order, then the ranks combine with
+``dist.all_reduce`` (SUM, MAX or MIN; bf16 and f16 in f32, rounded once
+after it).  That is the only call the backend makes: gloo offers nothing
+else for CUDA tensors (no ``reduce_scatter``, no ``all_gather``), so a
+gather is an all-reduce SUM of a zero buffer in which each rank fills its
+own shards' slots (adding zeros is exact), and ``psum_scatter`` is a
+``psum`` whose members keep their block.  Sums across ranks add in the
+backend's order, not shard order; min, max, gathers and sums in which
+one rank holds each nonzero term are exact either way.  ``unshard`` needs
+every shard in this process.
+
+While a :class:`~repro_torch.roofline.comm.CommCounter` is active, each
+collective records itself: in one process by the ring model over its
+group of shards (what the devices would move), across processes each
+``dist.all_reduce`` the backend makes, over the world.
 """
 
 from __future__ import annotations
@@ -28,6 +52,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..roofline import comm
 from .mesh import Mesh
 
 
@@ -75,12 +100,16 @@ def spec_splits(shape, mesh: Mesh, spec: Optional[P]) -> List[Tuple[int, Tuple[s
 def shard(x: torch.Tensor, mesh: Mesh, spec: P) -> List[torch.Tensor]:
     """``x`` cut by ``spec`` into one block a shard, each on its shard's
     device: views of ``x`` for shards on its device, one copy each for the
-    others (a replicated block: one copy per device)."""
+    others (a replicated block: one copy per device); ``None`` for the
+    shards of other ranks."""
     splits = [(dim, x.shape[dim] // mesh.axis_size(axes), mesh.axis_index(axes))
               for dim, axes in spec_splits(x.shape, mesh, spec)]
     copies: Dict[tuple, torch.Tensor] = {}
     out = []
     for k, dev in enumerate(mesh.flat_devices):
+        if not mesh.is_local(k):
+            out.append(None)
+            continue
         blk = x
         for dim, size, index in splits:
             blk = blk.narrow(dim, index[k] * size, size)
@@ -99,6 +128,8 @@ def unshard(parts: Sequence[torch.Tensor], mesh: Mesh, spec: P,
     device = torch.device(device) if device is not None else mesh.flat_devices[0]
     if len(parts) != mesh.size:
         raise ValueError(f"{len(parts)} parts for a mesh of {mesh.size} shards")
+    if not all(mesh.is_local(k) for k in range(mesh.size)):
+        raise ValueError("unshard: the mesh spans processes; gather the parts first")
     splits = [(dim, axes, mesh.axis_index(axes)) for dim, axes in
               _spec_axes(mesh, spec)]
     blocks: Dict[tuple, torch.Tensor] = {}
@@ -120,26 +151,118 @@ def axis_index(mesh: Mesh, axes) -> List[int]:
     return mesh.axis_index(axes)
 
 
+_NARROW = (torch.bfloat16, torch.float16)
+
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    return t.float() if t.dtype in _NARROW else t
+
+
+def _accumulate(parts: Sequence[torch.Tensor], op: Callable) -> torch.Tensor:
+    """``op`` over ``parts`` in order, bf16 and f16 in f32 (not rounded)."""
+    acc = _wide(parts[0])
+    for p in parts[1:]:
+        acc = op(acc, _wide(p))
+    return acc
+
+
+_DIST_OPS = {torch.add: "SUM", torch.maximum: "MAX", torch.minimum: "MIN"}
+
+
+def _identity(op: Callable, like: torch.Tensor) -> torch.Tensor:
+    """The element that ``op`` leaves unchanged, shaped as ``like``."""
+    if op is torch.add:
+        return torch.zeros_like(like)
+    if like.is_floating_point():
+        lo, hi = float("-inf"), float("inf")
+    else:
+        lo, hi = torch.iinfo(like.dtype).min, torch.iinfo(like.dtype).max
+    return torch.full_like(like, lo if op is torch.maximum else hi)
+
+
+class RankGroup:
+    """The processes of a ``torch.distributed`` group, for the shard plane
+    and the meshes over it.  Its one call is ``dist.all_reduce``."""
+
+    def __init__(self, group=None) -> None:
+        import torch.distributed as dist
+
+        if not dist.is_initialized():
+            raise RuntimeError("RankGroup: torch.distributed is not initialized "
+                               "(launch.mesh.init_distributed)")
+        self.group = group
+        self.rank = dist.get_rank(group)
+        self.world = dist.get_world_size(group)
+        self.backend = str(dist.get_backend(group))
+
+    def all_reduce(self, x: torch.Tensor, op: Callable) -> torch.Tensor:
+        """``op`` (``torch.add``, ``torch.maximum`` or ``torch.minimum``)
+        of every rank's ``x``, on every rank; ``x`` is not changed.  bf16
+        and f16 reduce in f32 and round once."""
+        import torch.distributed as dist
+
+        if op not in _DIST_OPS:
+            raise ValueError(f"RankGroup.all_reduce: no reduce op for {op}")
+        buf = _wide(x).clone(memory_format=torch.contiguous_format)
+        if buf.dtype == torch.bool:
+            buf = buf.to(torch.uint8)
+        comm.record("all-reduce", buf.nbytes, buf.nbytes, self.world)
+        dist.all_reduce(buf, op=getattr(dist.ReduceOp, _DIST_OPS[op]), group=self.group)
+        return buf.to(x.dtype)
+
+    def __repr__(self) -> str:
+        return f"RankGroup(rank={self.rank}, world={self.world}, backend={self.backend})"
+
+
+def merge(parts: Sequence[torch.Tensor], op: Callable,
+          ranks: Optional[RankGroup] = None) -> torch.Tensor:
+    """The shard plane's merge: per-shard partials combined with ``op`` in
+    shard order on ``parts[0]``'s device (bf16 and f16 in f32, rounded
+    once); with ``ranks``, ``parts`` are this rank's shards' and the ranks'
+    results then combine with ``dist.all_reduce``."""
+    dtype = parts[0].dtype
+    acc = _accumulate([p.to(parts[0].device) for p in parts], op)
+    if ranks is not None:
+        acc = ranks.all_reduce(acc, op)
+    return acc.to(dtype)
+
+
+def replicate(x: torch.Tensor, devices: Sequence[torch.device]) -> List[torch.Tensor]:
+    """``x`` on each of ``devices``: one copy per distinct device, none for
+    a device that is ``x``'s own."""
+    copies = {x.device: x}
+    return [copies.setdefault(torch.device(d), x.to(d)) for d in devices]
+
+
 def _place(x: torch.Tensor, members: Sequence[int], mesh: Mesh,
            out: List[Optional[torch.Tensor]]) -> None:
-    """``x`` on each member's device: one tensor per distinct device."""
-    copies = {x.device: x}
-    for k in members:
-        dev = mesh.flat_devices[k]
-        if dev not in copies:
-            copies[dev] = x.to(dev)
-        out[k] = copies[dev]
+    """``x`` on each member's device (this rank's members only): one tensor
+    per distinct device."""
+    local = [k for k in members if mesh.is_local(k)]
+    for k, y in zip(local, replicate(x, [mesh.flat_devices[k] for k in local])):
+        out[k] = y
 
 
 def _reduce(parts: Sequence[torch.Tensor], mesh: Mesh, axes, op: Callable,
-            scatter: Optional[Callable] = None) -> List[torch.Tensor]:
+            scatter: Optional[Callable] = None) -> List[Optional[torch.Tensor]]:
     out: List[Optional[torch.Tensor]] = [None] * mesh.size
-    for group in mesh.groups(axes):
-        order = sorted(group)  # shard order
-        dev = mesh.flat_devices[order[0]]
-        acc = parts[order[0]].to(dev)
-        for k in order[1:]:
-            acc = op(acc, parts[k].to(dev))
+    groups = mesh.groups(axes)
+    accs, dtype = [], None
+    for group in groups:
+        order = [k for k in sorted(group) if mesh.is_local(k)]  # shard order
+        if order:
+            dev = mesh.flat_devices[order[0]]
+            dtype = parts[order[0]].dtype
+            accs.append(_accumulate([parts[k].to(dev) for k in order], op))
+        else:
+            accs.append(None)
+    if mesh.ranks is not None:  # one all-reduce of every group's slot
+        like = next(a for a in accs if a is not None)
+        slots = torch.stack([(a if a is not None else _identity(op, like)).to(like.device)
+                             for a in accs])
+        accs = list(mesh.ranks.all_reduce(slots, op).unbind(0))
+    for group, acc in zip(groups, accs):
+        acc = acc.to(dtype)
         if scatter is None:
             _place(acc, group, mesh, out)
         else:
@@ -148,13 +271,28 @@ def _reduce(parts: Sequence[torch.Tensor], mesh: Mesh, axes, op: Callable,
     return out
 
 
+def _record(mesh: Mesh, op: str, operand: torch.Tensor, result_bytes: int, axes) -> None:
+    """A one-process collective into the active counters (across processes
+    the backend records its own calls)."""
+    if mesh.ranks is None:
+        comm.record(op, operand.nbytes, result_bytes, mesh.axis_size(axes))
+
+
+def _first(parts: Sequence[Optional[torch.Tensor]]) -> torch.Tensor:
+    return next(p for p in parts if p is not None)
+
+
 def psum(parts: Sequence[torch.Tensor], mesh: Mesh, axes) -> List[torch.Tensor]:
     """Sum over each group of ``axes``, on every member."""
+    x = _first(parts)
+    _record(mesh, "all-reduce", x, x.nbytes, axes)
     return _reduce(parts, mesh, axes, torch.add)
 
 
 def pmax(parts: Sequence[torch.Tensor], mesh: Mesh, axes) -> List[torch.Tensor]:
     """Elementwise max over each group of ``axes``, on every member."""
+    x = _first(parts)
+    _record(mesh, "all-reduce", x, x.nbytes, axes)
     return _reduce(parts, mesh, axes, torch.maximum)
 
 
@@ -165,9 +303,11 @@ def psum_scatter(parts: Sequence[torch.Tensor], mesh: Mesh, axes,
     ``tiled`` that dim must equal the group's size and is dropped."""
     n = mesh.axis_size(axes)
     d = scatter_dimension
-    size = parts[0].shape[d]
+    x = _first(parts)
+    size = x.shape[d]
     if (size % n) if tiled else (size != n):
         raise ValueError(f"psum_scatter: dim {d} of size {size} over {n} shards")
+    _record(mesh, "reduce-scatter", x, x.nbytes // n, axes)
 
     def block(acc, i):
         return acc.narrow(d, i * (size // n), size // n) if tiled else acc.select(d, i)
@@ -175,21 +315,38 @@ def psum_scatter(parts: Sequence[torch.Tensor], mesh: Mesh, axes,
     return _reduce(parts, mesh, axes, torch.add, scatter=block)
 
 
+def _gathered(parts: Sequence[Optional[torch.Tensor]], mesh: Mesh) -> List[torch.Tensor]:
+    """Every shard's piece, on this rank: an all-reduce SUM of a zero
+    buffer [shards, ...] in which this rank fills its own shards' slots
+    (exact: every other term is zero; bf16 and f16 travel as f32)."""
+    x = _first(parts)
+    buf = torch.zeros((mesh.size,) + tuple(x.shape), dtype=_wide(x).dtype, device=x.device)
+    for k, p in enumerate(parts):
+        if p is not None:
+            buf[k] = p.to(x.device)
+    return list(mesh.ranks.all_reduce(buf, torch.add).to(x.dtype).unbind(0))
+
+
 def all_gather(parts: Sequence[torch.Tensor], mesh: Mesh, axes, axis: int = 0,
                tiled: bool = False) -> List[torch.Tensor]:
     """Each group's pieces in ``axis_index`` order, concatenated along
     ``axis`` (``tiled``) or stacked on a new ``axis``, on every member."""
+    x = _first(parts)
+    _record(mesh, "all-gather", x, x.nbytes * mesh.axis_size(axes), axes)
+    pieces = list(parts) if mesh.ranks is None else _gathered(parts, mesh)
     out: List[Optional[torch.Tensor]] = [None] * mesh.size
     join = torch.cat if tiled else torch.stack
     for group in mesh.groups(axes):
         done: Dict[torch.device, torch.Tensor] = {}
         for k in group:
+            if not mesh.is_local(k):
+                continue
             dev = mesh.flat_devices[k]
             if dev not in done:
-                done[dev] = join([parts[j].to(dev) for j in group], dim=axis)
+                done[dev] = join([pieces[j].to(dev) for j in group], dim=axis)
             out[k] = done[dev]
     return out
 
 
-__all__ = ["P", "all_gather", "axis_index", "pmax", "psum", "psum_scatter", "shard",
-           "spec_splits", "unshard"]
+__all__ = ["P", "RankGroup", "all_gather", "axis_index", "pmax", "psum", "psum_scatter",
+           "merge", "replicate", "shard", "spec_splits", "unshard"]

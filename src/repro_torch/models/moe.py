@@ -215,3 +215,17 @@ def make_sharded_moe_ffn(cfg: LMConfig, mesh, dp, tp: str = "model"):
         return unshard(psum(ys, mesh, tp), mesh, P(dp, None), device=x2d.device)
 
     return moe_fn
+
+
+def load_balance_loss(cfg: LMConfig, lw: Dict, x: torch.Tensor) -> torch.Tensor:
+    """Switch-style auxiliary loss: E * sum_e f_e * p_e, with f_e the share
+    of the top-k assignments that go to expert e and p_e its mean router
+    probability, from f32 router logits."""
+    logits = x.float() @ lw["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    _, top_i = torch.topk(probs, cfg.moe.top_k, dim=-1)
+    E = cfg.moe.n_experts
+    counts = torch.bincount(top_i.reshape(-1), minlength=E).float()
+    f = counts / torch.clamp(counts.sum(), min=1.0)
+    p = probs.mean(dim=0)
+    return E * torch.sum(f * p)

@@ -275,6 +275,18 @@ def test_router_matches_reference():
     np.testing.assert_allclose(p.numpy(), np.asarray(r_p), rtol=1e-6, atol=1e-7)
 
 
+@pytest.mark.parametrize("skew", [False, True])
+def test_load_balance_loss_matches_reference(skew):
+    rcfg, cfg, lw, x = moe_case("ragged", skew=skew, n_tokens=64)
+    want = float(RM.load_balance_loss(rcfg, lw, jnp.asarray(x)))
+    got = TM.load_balance_loss(cfg, {k: torch.tensor(v) for k, v in lw.items()},
+                               torch.from_numpy(x))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(float(got), want, rtol=1e-6)
+    if skew:  # every token picks expert 0 first: far from the balanced 1
+        assert float(got) > 1.5
+
+
 @pytest.mark.parametrize("n_tokens, want", [(4, 128), (8192, 2048), (32768, 8192), (1024, 256)])
 def test_capacity_is_the_reference_expression(n_tokens, want):
     cfg = registry.get_config("granite-moe-3b-a800m")  # 40 experts, top-8
