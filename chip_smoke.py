@@ -4,6 +4,9 @@ paths once on one CUDA card.
 
     python3 chip_smoke.py                 # the deployment below, one card
 
+``scripts/chip_multicard.py`` runs its paths that spread over the cards
+(5s, 6m and the mesh phase) alone, on every visible card.
+
 Deployment: the paper's own settings, |P|=64 and B=512 (configs/rapidstore,
 paper section 6.5), ``high_threshold`` at its default, on a directed
 Graph500 R-MAT graph (a=0.57, b=0.19, c=0.19) of scale 22 and edge factor
@@ -61,9 +64,11 @@ script exits non-zero without the last line):
              reader pinned before the flip (its bundles untouched,
              BFS/SSSP/WCC bitwise) and a view after it; the modulo and
              degree-balanced loads; device bytes before the attach, at the
-             peak and after the detach.  After phase 6 its store takes a
-             ``symmetric=True`` plane: pull PageRank against the single
-             route as above
+             peak and after the detach, and each card's peak.  With
+             several cards, the plane again with its four shards on one
+             card, against the single route as above, timed, with its own
+             peak.  After phase 6 its store takes a ``symmetric=True``
+             plane: pull PageRank against the single route as above
 5a. write_side  on the main store: a write pipeline (4 shards, batches up
              to 1024), 4 writer threads each submitting 50 transactions with
              ``apply_async`` while two reader threads repeat edge search and
@@ -126,15 +131,19 @@ script exits non-zero without the last line):
              (``repro_torch.launch.plane``, one store a rank, each run's
              ranks child processes within ``MP_TIMEOUT``): (a) ``nccl``,
              one rank a visible card; (b) ``gloo``, ``MP_RANKS`` = 4 ranks
-             sharing ``cuda:0``; each rank builds the seeded store and a
+             on cards rank % n_cards (sharing ``cuda:0`` with one card);
+             each rank builds the seeded store and a
              4-shard plane over the ranks (shard k on rank k % world),
              runs PageRank (pull and push), BFS, SSSP, WCC and SpMM (d =
              128), commits 20 transactions on shard 1 and runs them again,
              migrates subgraphs between the ranks' shards, commits 20 on
              the moved subgraphs and runs them a third time; this process
              runs the same through a one-process plane on the store
-             first, then the nccl run, then the gloo run, one after
-             another; all in deterministic mode: every rank's BFS, SSSP,
+             first (shard k on card k % n_cards; with several cards, then
+             on a fresh store with every shard on ``cuda:0``, every answer
+             bitwise the first's), then the nccl run, then the gloo run,
+             one after another; all in deterministic mode: every rank's
+             BFS, SSSP,
              WCC, SpMM and pull PageRank bitwise this process's, push
              PageRank within 1e-5 and rtol 1e-3, atol 1e-9, its placement
              after the moves this process's; each rank's backend, world,
@@ -210,15 +219,17 @@ script exits non-zero without the last line):
 12m. mesh_models  the model side of the device mesh, ``MESH_SHARDS`` = 4
              shards on card k % n_cards (all four on one card), each
              part counted on its own: (a) ``mesh_bst``: BST's
-             4,194,304 x 32 table split by rows over a (model=4) mesh,
+             4,194,304 x 32 table placed by rows on a (model=4) mesh,
              serve_p99 and serve_bulk through ``make_sharded_lookup``
              (rows bitwise the single lookup's, logits within 1e-5, one
-             embedding_bag launch a shard), one train_batch step through
+             embedding_bag launch a shard, only the ids copied between
+             cards), one train_batch step through
              it against the single-device step (f32 rounding), one
              shard's embedding_bag launch at serve_bulk's per-shard shape
              timed with its bound; (b) ``mesh_granite``: granite at full
              width on (data=2, model=2), decode through the SP attention
-             and the weight-stationary MoE: f32 parity on a 4,096 cache
+             and the weight-stationary MoE, experts and cache placed a
+             block a shard: f32 parity on a 4,096 cache
              over 4 steps (``MESH_LOGITS_TOL``), one f32 forward of 2,048
              tokens through ``make_sharded_moe_ffn`` against the
              per-data-shard dispatch on one device, then decode_32k's
@@ -238,7 +249,14 @@ script exits non-zero without the last line):
              bitwise.  Parts (a)-(c) each count one more sharded step
              (BST's train_batch step, granite's decode_32k step, gin-tu's
              minibatch_lg step) under a ``roofline.comm.CommCounter``: a
-             ``mesh_comm`` line of per-device collective bytes by op
+             ``mesh_comm`` line of per-device collective bytes by op, and
+             the bytes ``collectives.shard`` copied between cards.  With
+             several cards, parts (a)-(c) also time their sharded form
+             with every shard on ``cuda:0``
+5s, 6m and 12m, with several cards: a ``cards`` line after each path:
+             its launches, ``max_memory_allocated`` and the bytes
+             ``collectives.shard`` copied, per card; a path with a kernel
+             fails unless it launched on every card
 13. the ``total`` line (the script's seconds), the ``kernels`` line, the
     card's name and power limit, then the ``ok`` line.
 
@@ -266,7 +284,8 @@ checkpoint of f32 weights and bf16 moments is 26.4 GB of disk a save).
 Peaks and model FLOPs come from ``repro_torch.roofline.model`` (the
 H100 SXM data sheet's 3.35 TB/s and 67 TFLOP/s f32).  Phase 6m's cut:
 scale 18, not 22, so that five stores (four ranks and the nccl rank)
-build and fit beside the script's own; four ranks share one card.
+build and fit beside the script's own; with one card, four ranks share
+it.
 
 ``bound_ms`` counts the bytes the function needs on this run's data, not
 the whole tiles: a tile's live ids are a sorted prefix followed by
@@ -413,10 +432,12 @@ def emit(phase: str, **fields) -> None:
 
 
 def sync(device) -> None:
+    """Drain every visible card (not only ``device``): a phase over several
+    cards ends when all of them have."""
     if device.type == "cuda":
-        import torch
+        from repro_torch.kernels.runtime import drain
 
-        torch.cuda.synchronize(device)
+        drain()
 
 
 def wall(fn, device):
@@ -450,16 +471,25 @@ def time_ms(fn, device, reps: int, graph: bool = False) -> float:
     events on the card, the host clock on the CPU).  With ``graph`` the
     ``reps`` calls are captured once in a CUDA graph and the replay is
     timed, so a call that is shorter than its own Python launch path is
-    timed on the device, not at the host's launch rate."""
+    timed on the device, not at the host's launch rate.  The events are
+    recorded on ``device``'s stream: pass the card whose work is timed."""
     import torch
 
     fn()
     sync(device)
-    if device.type != "cuda":
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        return (time.perf_counter() - t0) * 1e3 / reps
+    if device.type == "cuda":
+        with torch.cuda.device(device):
+            return _time_card_ms(fn, device, reps, graph)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _time_card_ms(fn, device, reps: int, graph: bool) -> float:
+    """``time_ms`` on the card, with ``device`` current."""
+    import torch
+
     if graph:
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
@@ -608,7 +638,8 @@ def phase_card(device) -> str:
 
     cap = torch.cuda.get_device_capability(device)
     emit("card", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
-         capability=list(cap), name=torch.cuda.get_device_name(device))
+         capability=list(cap), name=torch.cuda.get_device_name(device),
+         cards=torch.cuda.device_count())
     if not is_hopper():
         raise RuntimeError(f"need a Hopper card (capability 9.0), got {cap}")
     return smi
@@ -1315,7 +1346,6 @@ def hold_shard_spmm(plane, view, h) -> list:
     from repro_torch.kernels.spmm import leaf_spmm
     from repro_torch.kernels.spmm.ref import leaf_spmm_ref
 
-    launches = leaf_spmm.launches
     out = []
     for k, shard in enumerate(plane.sharded_blocks(view).shards):
         _, rows, length = shard.live()
@@ -1330,10 +1360,38 @@ def hold_shard_spmm(plane, view, h) -> list:
             err = max(err, max_abs_err(y[c0:c1], yr))
             del yr
         del y
-        out.append({"shard": k, "tiles": shard.n_live, "width": int(rows.shape[1]),
-                    "max_abs_err": err})
-    leaf_spmm.launches = launches
+        out.append({"shard": k, "device": str(shard.device), "tiles": shard.n_live,
+                    "width": int(rows.shape[1]), "max_abs_err": err})
     return out
+
+
+def spmm_overlap(plane, view, h, device) -> dict:
+    """One warm plane SpMM under the profiler (device activity only): each
+    ``leaf_spmm`` launch's card and its interval on the device clock (ms
+    from the first launch's start), how many pairs of launches on two
+    cards overlap, their summed time and the span from the first start to
+    the last end; ``None`` where the trace holds no such kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.spmm import spmm_view
+
+    spmm_view(view, h)
+    sync(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        spmm_view(view, h)
+        sync(device)
+    runs = sorted((e.time_range.start, e.time_range.end, e.device_index) for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and "leaf_spmm" in e.name)
+    if not runs:
+        return None
+    t0 = runs[0][0]
+    pairs = sum(1 for i, a in enumerate(runs) for b in runs[i + 1:]
+                if a[2] != b[2] and b[0] < a[1])
+    return {"launches": [{"card": c, "start_ms": (a - t0) / 1e3, "end_ms": (b - t0) / 1e3}
+                         for a, b, c in runs],
+            "overlapping_pairs": pairs, "kernel_ms_sum": sum(b - a for a, b, _ in runs) / 1e3,
+            "span_ms": (max(b for _, b, _ in runs) - t0) / 1e3}
 
 
 def shard_layout(plane, view) -> list:
@@ -1395,7 +1453,10 @@ def phase_shard_plane(store, seed, device) -> int:
     errs = hold_plane(single, sharded, "plane vs single route")
     dropped = dropped_partial_rejected(plane, r2.view, single["pagerank_view"],
                                        "a plane without a shard's partials")
-    spmm_shards = hold_shard_spmm(plane, r2.view, h)
+    with uncounted():
+        spmm_shards = hold_shard_spmm(plane, r2.view, h)
+        # with several cards: do the shards' kernels run at once?
+        overlap = spmm_overlap(plane, r2.view, h, device) if cuda and n_cards() > 1 else None
     # 4. 20 transactions on shard 1's subgraphs: the other shards upload
     # nothing and keep their bundles (R2 retires last, so it is the splice
     # source of the next view)
@@ -1482,16 +1543,47 @@ def phase_shard_plane(store, seed, device) -> int:
     # 8. detach
     stats = {k: v for k, v in vars(plane.stats).items()}
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    card_peaks = [torch.cuda.max_memory_allocated(k) for k in range(n_cards())] if cuda else []
+    devices = [str(d) for d in plane.devices]
     store.detach_shard_plane()
-    del plane, h, w, w3, w4
+    del plane
     free_device(device)
     mem_after = torch.cuda.memory_allocated(device) if cuda else 0
-    emit("shard_plane", shards=PLANE_SHARDS, single_route_s=single_s,
+    emit("shard_plane", shards=PLANE_SHARDS, devices=devices, single_route_s=single_s,
          plane_s=sharded_s, max_abs_err=errs, leaf_spmm_per_sharded_spmm=spmm_launches,
          leaf_spmm_vs_plain=spmm_shards, pagerank_check_rejects_dropped_shard=dropped,
-         placement_loads=loads, stats=stats,
+         placement_loads=loads, stats=stats, card_peaks=card_peaks, spmm_overlap=overlap,
          device_bytes={"before_attach": mem_before, "peak": peak, "after_detach": mem_after})
+    if cuda and n_cards() > 1:
+        shard_plane_one_card(store, w4, h, device)
+    del h, w, w3, w4
+    free_device(device)
     return prior_peak
+
+
+def shard_plane_one_card(store, w, h, device) -> None:
+    """With several cards, phase 5s's plane again with its
+    ``PLANE_SHARDS`` shards all on ``device``: the five queries through it
+    (warm medians of 3) against the single route on the same view, held as
+    the four-card plane is; the peak on ``device`` in this part alone."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats(device)
+    plane = store.attach_shard_plane(devices=[device] * PLANE_SHARDS, symmetric=False)
+    r = store.begin_read()
+    _, tiles_s = wall(lambda: (plane.sharded_coo(r.view), plane.sharded_blocks(r.view)),
+                      device)
+    got, plane_s = plane_queries(r.view, w, h, device, reps=3)
+    with single_route():
+        want, single_s = plane_queries(r.view, w, h, device, reps=3)
+    errs = hold_plane(want, got, "four shards on one card vs single route")
+    store.end_read(r)
+    del got, want, r
+    peak = torch.cuda.max_memory_allocated(device)
+    store.detach_shard_plane()
+    del plane
+    emit("shard_plane_one_card", shards=PLANE_SHARDS, device=str(device), cold_s=tiles_s,
+         plane_s=plane_s, single_route_s=single_s, max_abs_err=errs, peak=peak)
 
 
 def phase_shard_symmetric(store, device) -> None:
@@ -2350,12 +2442,16 @@ def phase_multiprocess(store, seed, device) -> dict:
     """Phase 6m on phase 6's store (undirected R-MAT of ``TC_SCALE``): the
     shard plane over processes, one store a rank (``launch.plane``, all
     ranks of a run within ``MP_TIMEOUT``).  First this process runs the
-    sequence on ``store`` through a one-process plane; then (a) ``nccl``,
-    one rank a visible card; then (b) ``gloo``, ``MP_RANKS`` ranks sharing
-    ``cuda:0``: one after another, so that no run's seconds share the card
-    or the host with another's.  Every rank builds the seeded store,
-    attaches a ``MP_SHARDS``-shard plane over the ranks (shard k on rank
-    k % world) and runs PageRank (pull and push), BFS, SSSP, WCC and SpMM
+    sequence on ``store`` through a one-process plane (shard k on card
+    k % n_cards); with several cards, again on a fresh store of the same
+    seed with every shard on ``cuda:0``, every answer (push-PageRank too)
+    bitwise the first run's; then (a) ``nccl``, one rank a visible card;
+    then (b) ``gloo``, ``MP_RANKS`` ranks on cards ``rank % n_cards`` (all
+    on ``cuda:0`` with one card): one after another, so that no run's
+    seconds share a card or the host with another's.  Every rank builds
+    the seeded store, attaches a ``MP_SHARDS``-shard plane over the ranks
+    (shard k on rank k % world) and runs PageRank (pull and push), BFS,
+    SSSP, WCC and SpMM
     (d = ``D_FEATURES``), commits ``MP_TXNS`` transactions on shard 1 and
     runs them again, migrates subgraphs between the ranks' shards
     (``cross_moves``), commits ``MP_TXNS`` on the moved subgraphs and runs
@@ -2370,24 +2466,36 @@ def phase_multiprocess(store, seed, device) -> dict:
 
     import torch
 
-    from repro_torch.launch.mesh import make_shard_mesh
-    from repro_torch.launch.plane import BITWISE, drive, spawn_ranks, summary
+    from repro_torch.launch.mesh import Mesh, make_shard_mesh
+    from repro_torch.launch.plane import (BITWISE, STEPS, drive, rmat_store, spawn_ranks,
+                                          summary)
 
     path = [str(ROOT / "src")] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
                                   if p]
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(path))
+    runs = [("one process", store, make_shard_mesh(MP_SHARDS, device=device))]
+    if device.type == "cuda" and n_cards() > 1:
+        runs.append(("one process, one card", rmat_store(TC_SCALE, seed, device)[0],
+                     Mesh([device] * MP_SHARDS, (MP_SHARDS,), ("shard",))))
     was = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)
     try:
-        one, one_s = wall(lambda: drive(store, make_shard_mesh(MP_SHARDS, device=device),
-                                        seed, MP_TXNS, D_FEATURES), device)
+        for name, st, mesh in runs:
+            got, got_s = wall(lambda: drive(st, mesh, seed, MP_TXNS, D_FEATURES), device)
+            line = summary(got)
+            emit("multiprocess", backend=name, world=1, seconds=got_s,
+                 devices=[str(d) for d in mesh.flat_devices],
+                 **{k: v for k, v in line.items() if k.endswith("_s") or k.startswith("uploads")},
+                 moves=len(got["moves"]), migration_rebuilds=got["migration_rebuilds"],
+                 leaf_spmm_launches=got["leaf_spmm_launches"])
+            if name == "one process":
+                one, want = got, line
+            elif any(line[f"{step}_digest"] != want[f"{step}_digest"] for step in STEPS):
+                raise AssertionError("multiprocess: the plane over the cards and the plane on "
+                                     "one card differ")
     finally:
         torch.use_deterministic_algorithms(was)
-    want = summary(one)
-    emit("multiprocess", backend="one process", world=1, seconds=one_s,
-         **{k: v for k, v in want.items() if k.endswith("_s") or k.startswith("uploads")},
-         moves=len(one["moves"]), migration_rebuilds=one["migration_rebuilds"],
-         leaf_spmm_launches=one["leaf_spmm_launches"])
+    del runs
     # nccl needs the card (a CPU rehearsal runs the gloo ranks alone)
     worlds = {"nccl": torch.cuda.device_count()} if device.type == "cuda" else {}
     worlds["gloo"] = MP_RANKS
@@ -3383,14 +3491,35 @@ def bst_batch_on(cfg, batch: int, rng, gen, device):
             torch.randn((batch, cfg.n_other_feats), generator=gen, device=device))
 
 
+def one_card_mesh(mesh, device):
+    """``mesh``'s shape and axes with every shard on ``device``: the same
+    form on one card, beside the one spread over the cards."""
+    from repro_torch.launch.mesh import Mesh
+
+    return Mesh([device] * mesh.size, tuple(mesh.shape.values()), mesh.axis_names)
+
+
+def shard_copy_bytes(fn) -> tuple:
+    """``(fn(), bytes collectives.shard copied between devices in it)``."""
+    from repro_torch.roofline.comm import COPY, CommCounter
+
+    with CommCounter() as c:
+        out = fn()
+    return out, c.stats()["bytes_by_op"].get(COPY, 0.0)
+
+
 def phase_mesh_bst(seed: int, device) -> dict:
     """Mesh part (a): BST's item table split by rows over ``MESH_SHARDS``
-    shards (``make_sharded_lookup``, axis ``model``): serve_p99 and
-    serve_bulk through it, the looked-up rows bitwise the single-device
-    lookup's and the logits within 1e-5 of its forward; one train step at
-    train_batch through it against the single-device step (every new
-    parameter within f32 rounding); one shard's ``embedding_bag`` launch at
-    the bulk forward's per-shard shape, timed."""
+    shards (``make_sharded_lookup``, axis ``model``; shard k on card
+    k % n_cards): serve_p99 and serve_bulk through the table placed once
+    (``place_table``), the looked-up rows bitwise the single-device
+    lookup's, only the ids copied between cards, and the logits within
+    1e-5 of its forward; with several cards, the same placed form with
+    every shard on ``device`` timed beside it; one train step at
+    train_batch through the lookup (its table cut per call) against the
+    single-device step (every new parameter within f32 rounding); one
+    shard's ``embedding_bag`` launch at the bulk forward's per-shard
+    shape, on that shard's card, timed."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -3398,7 +3527,6 @@ def phase_mesh_bst(seed: int, device) -> dict:
     from repro_torch.data.pipeline import RecsysBatches
     from repro_torch.kernels.embedding_bag import embedding_bag
     from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
-    from repro_torch.launch.collectives import P, shard
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import bst as B
     from repro_torch.optim import adamw
@@ -3412,49 +3540,68 @@ def phase_mesh_bst(seed: int, device) -> dict:
     rng = np.random.default_rng(seed + 80)
     params = B.init_params(cfg, gen, device=device)
     table = params["item_emb"]
+    placed = {**params, "item_emb": B.place_table(table, mesh)}
+    cards = len(set(mesh.flat_devices))
+    one_card = None
+    if cards > 1:
+        mesh1 = one_card_mesh(mesh, device)
+        one_card = (B.make_sharded_lookup(mesh1, "model"),
+                    {**params, "item_emb": B.place_table(table, mesh1)})
     report = dict(mesh=dict(mesh.shape), shard_devices=[str(d) for d in mesh.flat_devices],
                   rows_per_shard=cfg.n_items // MESH_SHARDS)
     for name, batch in zip(("serve_p99", "serve_bulk"), SERVE_BATCHES):
         hist, target, feats = bst_batch_on(cfg, batch, rng, gen, device)
         seq = torch.cat([hist, target[:, None]], dim=1)
         n0 = embedding_bag.launches
-        rows = lookup(table, seq)
+        rows, copied = shard_copy_bytes(lambda: lookup(placed["item_emb"], seq))
         launches = embedding_bag.launches - n0
         if not torch.equal(rows, B.embedding_lookup(table, seq)):
             raise AssertionError(f"mesh bst {name}: sharded lookup not bitwise the single one")
         if "embedding_bag" in PATH_KERNELS["mesh_bst"] and launches != MESH_SHARDS:
             raise AssertionError(f"mesh bst {name}: {launches} embedding_bag launches, "
                                  f"want one a shard ({MESH_SHARDS})")
-        got = B.forward(cfg, params, hist, target, feats, lookup_fn=lookup)
+        if copied != (cards - 1) * seq.nbytes:  # the ids, once to each other card
+            raise AssertionError(f"mesh bst {name}: the placed lookup copied {copied} bytes "
+                                 f"between cards, its ids are {seq.nbytes}")
+        got = B.forward(cfg, placed, hist, target, feats, lookup_fn=lookup)
         want = B.forward(cfg, params, hist, target, feats)
         err = check_logits(got, want, 1e-5, 1e-5, f"mesh bst forward {name}")
-        ms = time_ms(lambda: B.forward(cfg, params, hist, target, feats, lookup_fn=lookup),
+        ms = time_ms(lambda: B.forward(cfg, placed, hist, target, feats, lookup_fn=lookup),
                      device, 10)
         single_ms = time_ms(lambda: B.forward(cfg, params, hist, target, feats), device, 10)
         report[name] = dict(batch=batch, ms=ms, single_ms=single_ms,
                             rows_per_s=batch / ms * 1e3, single_rows_per_s=batch / single_ms * 1e3,
                             lookup_bitwise=True, logits_bitwise=bool(torch.equal(got, want)),
-                            max_abs_err=err, embedding_bag_launches_per_lookup=launches)
+                            max_abs_err=err, embedding_bag_launches_per_lookup=launches,
+                            lookup_shard_copy_bytes=copied)
+        if one_card is not None:
+            lookup1, placed1 = one_card
+            report[name]["one_card_ms"] = time_ms(lambda: B.forward(
+                cfg, placed1, hist, target, feats, lookup_fn=lookup1), device, 10)
         emit("mesh_bst", cell=name, **report[name])
         if name == "serve_bulk":  # one shard's launch at this lookup's per-shard shape
-            tab1 = shard(table, mesh, P("model", None))[1]
-            local = seq.reshape(-1, 1) - tab1.shape[0]
+            tab1 = placed["item_emb"].parts[1]
+            local = seq.reshape(-1, 1).to(tab1.device) - tab1.shape[0]
             ids1 = torch.where((local >= 0) & (local < tab1.shape[0]), local, 0).contiguous()
-            got1 = embedding_bag(tab1, ids1)
-            want1 = embedding_bag_ref(tab1, ids1)
-            torch.testing.assert_close(got1, want1, rtol=1e-5, atol=1e-5)
-            ids1_l = ids1.long()
-            distinct = int(torch.unique(ids1).numel())
-            nbytes = distinct * cfg.embed_dim * 4 + ids1.numel() * 4 + ids1.numel() * cfg.embed_dim * 4
-            b_ms, b_by = bound(nbytes, ids1.numel() * cfg.embed_dim)
-            report["embedding_bag_shard"] = dict(
-                name="embedding_bag", shape=[ids1.shape[0], 1, cfg.embed_dim],
-                table_rows=tab1.shape[0], distinct_rows=distinct,
-                max_abs_err=max_abs_err(got1, want1),
-                ms=time_ms(lambda: embedding_bag(tab1, ids1), device, 20, graph=True),
-                plain_ms=time_ms(lambda: embedding_bag_ref(tab1, ids1), device, 5),
-                library_ms=time_ms(lambda: F.embedding_bag(ids1_l, tab1, mode="sum"), device, 20),
-                bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes)
+            on1 = tab1.device
+            with uncounted():
+                got1 = embedding_bag(tab1, ids1)
+                want1 = embedding_bag_ref(tab1, ids1)
+                torch.testing.assert_close(got1, want1, rtol=1e-5, atol=1e-5)
+                ids1_l = ids1.long()
+                distinct = int(torch.unique(ids1).numel())
+                nbytes = (distinct * cfg.embed_dim * 4 + ids1.numel() * 4
+                          + ids1.numel() * cfg.embed_dim * 4)
+                b_ms, b_by = bound(nbytes, ids1.numel() * cfg.embed_dim)
+                report["embedding_bag_shard"] = dict(
+                    name="embedding_bag", shape=[ids1.shape[0], 1, cfg.embed_dim],
+                    table_rows=tab1.shape[0], distinct_rows=distinct, device=str(on1),
+                    max_abs_err=max_abs_err(got1, want1),
+                    ms=time_ms(lambda: embedding_bag(tab1, ids1), on1, 20, graph=True),
+                    plain_ms=time_ms(lambda: embedding_bag_ref(tab1, ids1), on1, 5),
+                    library_ms=time_ms(lambda: F.embedding_bag(ids1_l, tab1, mode="sum"), on1,
+                                       20),
+                    bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes)
             emit("kernel", cell="mesh_bst_shard", **report["embedding_bag_shard"])
             del tab1, local, ids1, ids1_l, got1, want1
         del hist, target, feats, seq, rows, got, want
@@ -3484,25 +3631,31 @@ def phase_mesh_bst(seed: int, device) -> dict:
     del p_sh, p_1
     report["comm"] = emit_comm("bst", "train_batch", mesh, lambda: make_bst_train_step(
         cfg, lookup_fn=lookup)(params, opt, *x))
-    del params, table, opt, x
+    del params, table, placed, one_card, opt, x
     free_device(device)
     return report
 
 
 def phase_mesh_granite(seed: int, device) -> dict:
     """Mesh part (b): granite-moe-3b-a800m at full width on a (data=2,
-    model=2) mesh, decode through ``make_sp_attn_fn(mesh, ("model",),
-    "data")`` and ``make_weight_stationary_moe_ffn(cfg, mesh, "data",
-    "model")``.  Parity: f32 weights, a cache of ``MESH_CHECK_CACHE``
-    positions, ``MESH_CHECK_STEPS`` steps against the single-device f32
-    route (plain attention, ``moe_ffn``) fed the same tokens, logits within
-    ``MESH_LOGITS_TOL``; one f32 forward of ``MESH_FORWARD_SEQ`` tokens
-    through ``make_sharded_moe_ffn`` against the single-device forward
-    with the same per-data-shard dispatch (``_moe_capacity`` on each half
-    of the tokens, as the reference's own test holds it).  Timed: bf16,
-    ``DECODE_BATCH`` x ``DECODE_SEQ``, ``DECODE_STEPS`` steps of the
-    sharded route and of the single-device route (the ``flash_decode``
-    kernel, decode_32k's route) on the same cache."""
+    model=2) mesh (shard k on card k % n_cards), decode through
+    ``make_sp_attn_fn(mesh, ("model",), "data")`` and
+    ``make_weight_stationary_moe_ffn(cfg, mesh, "data", "model")`` with the
+    expert weights placed once (``place_experts``) and the cache placed a
+    slice a shard (``place_sp_cache``).  Parity: f32 weights, a cache of
+    ``MESH_CHECK_CACHE`` positions, ``MESH_CHECK_STEPS`` steps against the
+    single-device f32 route (plain attention, ``moe_ffn``) fed the same
+    tokens, logits within ``MESH_LOGITS_TOL``; one f32 forward of
+    ``MESH_FORWARD_SEQ`` tokens through ``make_sharded_moe_ffn`` (its
+    experts placed) against the single-device forward with the same
+    per-data-shard dispatch (``_moe_capacity`` on each half of the tokens,
+    as the reference's own test holds it).  Timed: bf16, ``DECODE_BATCH``
+    x ``DECODE_SEQ``, ``DECODE_STEPS`` steps of the sharded route, of the
+    same placed route with every shard on ``device`` (with several cards)
+    and of the single-device route (the ``flash_decode`` kernel,
+    decode_32k's route), each on its own copy of one cache.  A placed step
+    copies between cards less than one block of its cache or experts
+    holds: no weight or cache block moves."""
     import numpy as np
     import torch
 
@@ -3510,12 +3663,14 @@ def phase_mesh_granite(seed: int, device) -> dict:
     from repro_torch.models import moe as TM
     from repro_torch.models import transformer as T
     from repro_torch.optim.tree import tree_map
-    from repro_torch.serve.decode import flash_attn_fn, make_decode_step, make_sp_attn_fn
+    from repro_torch.serve.decode import (flash_attn_fn, make_decode_step, make_sp_attn_fn,
+                                          place_sp_cache)
 
     cfg = granite_config()
     mesh = make_mesh((2, 2), ("data", "model"), device=device)
     sp_attn = make_sp_attn_fn(mesh, ("model",), "data")
     ws_moe = TM.make_weight_stationary_moe_ffn(cfg, mesh, "data", "model")
+    ws_specs = TM.weight_stationary_specs("data", "model")
     gen = torch.Generator(device=device).manual_seed(seed + 90)
     rng = np.random.default_rng(seed + 90)
     reset_peak(device)
@@ -3533,16 +3688,18 @@ def phase_mesh_granite(seed: int, device) -> dict:
     def tokens(shape):
         return torch.from_numpy(rng.integers(0, cfg.vocab, shape, dtype=np.int32)).to(device)
 
-    # parity in f32: the same cache twice, each route writing its own
+    # parity in f32: one cache, whole for the single route and placed for
+    # the sharded one, each route writing its own
     first = MESH_CHECK_CACHE - MESH_CHECK_STEPS
-    cache_sh = filled_cache(MESH_CHECK_CACHE, first, torch.float32)
-    cache_1 = {k: v.clone() for k, v in cache_sh.items()}
+    cache_1 = filled_cache(MESH_CHECK_CACHE, first, torch.float32)
+    cache_sh = place_sp_cache(cache_1, mesh, ("model",), "data")
+    params_sh = TM.place_experts(params, mesh, ws_specs)
     step_sh = make_decode_step(cfg, torch.float32, attn_fn=sp_attn, moe_fn=ws_moe)
     step_1 = make_decode_step(cfg, torch.float32)
     tok, errs, same_tokens, absmax = tokens((DECODE_BATCH, 1)), [], [], 0.0
     for i in range(MESH_CHECK_STEPS):
         l1, t1, _ = step_1(params, cache_1, tok, first + i)
-        lsh, tsh, _ = step_sh(params, cache_sh, tok, first + i)
+        lsh, tsh, _ = step_sh(params_sh, cache_sh, tok, first + i)
         errs.append(check_logits(lsh, l1, MESH_LOGITS_TOL, MESH_LOGITS_TOL,
                                  f"mesh granite decode step {i}"))
         same_tokens.append(bool(torch.equal(tsh, t1)))
@@ -3553,16 +3710,18 @@ def phase_mesh_granite(seed: int, device) -> dict:
                                   step_max_abs_err=errs, tokens_equal=same_tokens,
                                   logit_absmax=absmax, tolerance=MESH_LOGITS_TOL)
     emit("mesh_granite", part="decode_check", **report["decode_check"])
-    del cache_sh, cache_1, l1, lsh
+    del cache_sh, cache_1, params_sh, l1, lsh
     free_device(device)
 
-    # one f32 forward through the sharded MoE
+    # one f32 forward through the sharded MoE, its experts placed
     moe_sh = TM.make_sharded_moe_ffn(cfg, mesh, "data", "model")
+    params_sh = TM.place_experts(params, mesh, TM.sharded_specs("model"))
     halves = lambda lw, x: torch.cat([TM._moe_capacity(cfg, lw, h) for h in x.chunk(2)])  # noqa: E731
     prompt = tokens((1, MESH_FORWARD_SEQ))
     with torch.no_grad():
-        f_sh, f_sh_s = wall(lambda: T.forward(cfg, params, prompt, compute_dtype=torch.float32,
-                                              remat=False, moe_fn=moe_sh), device)
+        f_sh, f_sh_s = wall(lambda: T.forward(cfg, params_sh, prompt,
+                                              compute_dtype=torch.float32, remat=False,
+                                              moe_fn=moe_sh), device)
         f_1, f_1_s = wall(lambda: T.forward(cfg, params, prompt, compute_dtype=torch.float32,
                                             remat=False, moe_fn=halves), device)
     report["forward"] = dict(tokens=MESH_FORWARD_SEQ, seconds=f_sh_s, single_seconds=f_1_s,
@@ -3570,35 +3729,56 @@ def phase_mesh_granite(seed: int, device) -> dict:
                                                       "mesh granite sharded-MoE forward"),
                              logit_absmax=float(f_1.abs().max()), tolerance=MESH_LOGITS_TOL)
     emit("mesh_granite", part="forward", **report["forward"])
-    del f_sh, f_1
+    del f_sh, f_1, params_sh
     params = tree_map(lambda t: t.to(torch.bfloat16), params)
     free_device(device)
 
-    # timed in bf16: the sharded route, then the single route, on one cache
+    # timed in bf16: the sharded route (placed), the same on one card (with
+    # several cards), then the single route, each on its copy of one cache
     first = DECODE_SEQ - DECODE_STEPS
     cache = filled_cache(DECODE_SEQ, first, torch.bfloat16)
     start = tokens((DECODE_BATCH, 1))
+    meshes = [("sharded", mesh)]
+    if len(set(mesh.flat_devices)) > 1:
+        meshes.append(("one_card", one_card_mesh(mesh, device)))
+    routes = []
+    for route, m in meshes:
+        routes.append((route, make_decode_step(
+            cfg, torch.bfloat16, attn_fn=make_sp_attn_fn(m, ("model",), "data"),
+            moe_fn=TM.make_weight_stationary_moe_ffn(cfg, m, "data", "model")),
+            TM.place_experts(params, m, ws_specs), place_sp_cache(cache, m, ("model",), "data")))
+    routes.append(("single", make_decode_step(cfg, torch.bfloat16, attn_fn=flash_attn_fn),
+                   params, cache))
+    sharded_step, params_sh, cache_sh = routes[0][1:]
     timed = {}
-    for route, step in (("sharded", make_decode_step(cfg, torch.bfloat16, attn_fn=sp_attn,
-                                                     moe_fn=ws_moe)),
-                        ("single", make_decode_step(cfg, torch.bfloat16, attn_fn=flash_attn_fn))):
+    for route, step, weights, kv in routes:
         tok, secs = start, []
         for i in range(DECODE_STEPS):
-            (logits, nxt, _), sec = wall(lambda: step(params, cache, tok, first + i), device)
+            (logits, nxt, _), sec = wall(lambda: step(weights, kv, tok, first + i), device)
             if not torch.isfinite(logits).all():
                 raise AssertionError(f"mesh granite {route}: non-finite logits")
             secs.append(sec)
             tok = nxt[:, None]
         timed[route] = dict(step_s=secs, tok_per_s=DECODE_BATCH * DECODE_STEPS / sum(secs),
                             median_step_ms=float(np.median(secs)) * 1e3)
+    # one more placed step: what it copies between cards a layer, against
+    # the smallest block a layer of its cache and expert weights holds (a
+    # block moved on every call would copy at least that much a layer)
+    _, copied = shard_copy_bytes(lambda: sharded_step(params_sh, cache_sh, start, first))
+    blocks = [p.nbytes // cfg.n_layers for leaf in (*cache_sh.values(),
+                                                     *(params_sh["layers"][k] for k in ws_specs))
+              for p in leaf.parts]
+    if copied / cfg.n_layers >= min(blocks):
+        raise AssertionError(f"mesh granite: a placed decode step copied {copied} bytes "
+                             f"between cards, a layer's smallest block is {min(blocks)}")
     report["decode_timed"] = dict(batch=DECODE_BATCH, cache_len=DECODE_SEQ, steps=DECODE_STEPS,
-                                  sharded=timed["sharded"], single=timed["single"],
+                                  **timed, placed_step_shard_copy_bytes=copied,
+                                  smallest_block_bytes_a_layer=min(blocks),
                                   peak_allocated_bytes=peak_bytes(device))
     emit("mesh_granite", part="decode_timed", **report["decode_timed"])
-    sharded_step = make_decode_step(cfg, torch.bfloat16, attn_fn=sp_attn, moe_fn=ws_moe)
     report["comm"] = emit_comm(cfg.name, "decode_32k", mesh,
-                               lambda: sharded_step(params, cache, start, first))
-    del params, cache
+                               lambda: sharded_step(params_sh, cache_sh, start, first))
+    del params, cache, routes, params_sh, cache_sh
     free_device(device)
     return report
 
@@ -3678,6 +3858,11 @@ def phase_mesh_gnn(store, seed, device) -> dict:
              "control": step_fn(gather_fn=Gather.apply, scatter_fn=Scatter.apply),
              "single": step_fn(comm_dtype=torch.bfloat16),
              "f32_wire": step_fn()}
+    if len(set(mesh.flat_devices)) > 1:  # the sharded step with every shard on one card
+        mesh1 = one_card_mesh(mesh, device)
+        steps["one_card"] = step_fn(gather_fn=G.make_shardmap_gather(mesh1, "data", "data"),
+                                    scatter_fn=G.make_shardmap_scatter(mesh1, "data", "data",
+                                                                       max_n))
     params = G.init_gnn(cfg, torch.Generator(device=device).manual_seed(seed + 100), d_feat,
                         device=device)
 
@@ -3712,9 +3897,10 @@ def phase_mesh_gnn(store, seed, device) -> dict:
     first, first_size = sample(0)
     sample_s = time.perf_counter() - t0
     secs = {}
-    for name in ("sharded", "single"):
-        run(name, first)
-        _, secs[name] = wall(lambda: run(name, first), device)
+    for name in ("sharded", "single", "one_card"):
+        if name in steps:
+            run(name, first)
+            _, secs[name] = wall(lambda: run(name, first), device)
     comm = emit_comm(GNN_ARCH, "minibatch_lg", mesh, lambda: run("sharded", first))
     batches, fault_err = [], None
     was = torch.are_deterministic_algorithms_enabled()
@@ -3757,7 +3943,8 @@ def phase_mesh_gnn(store, seed, device) -> dict:
                   max_edges=max_e, sample_s=sample_s, batches=batches,
                   loss_rtol=MESH_GNN_LOSS_RTOL, tolerance=MESH_GNN_GRAD_TOL,
                   reversed_max_leaf_err=fault_err, step_s=secs["sharded"],
-                  single_step_s=secs["single"], comm=comm)
+                  single_step_s=secs["single"], one_card_step_s=secs.get("one_card"),
+                  shard_devices=[str(d) for d in mesh.flat_devices], comm=comm)
     emit("mesh_gnn", **report)
     del first, params, steps
     free_device(device)
@@ -3782,7 +3969,7 @@ def phase_mesh_reduce(seed: int, device) -> dict:
         init_error_feedback,
         psum_compressed,
     )
-    from repro_torch.optim.tree import tree_leaves
+    from repro_torch.optim.tree import tree_leaves, tree_map
     from repro_torch.train.step import bst_value_and_grad
 
     _, cfg = model_configs()
@@ -3793,10 +3980,13 @@ def phase_mesh_reduce(seed: int, device) -> dict:
                          seed=seed + 1)[0]
     keys = ("hist", "target", "other", "label")
     parts = {k: shard(torch.from_numpy(data[k]).to(device), mesh, P("data")) for k in keys}
+    # data parallel: each shard's card holds a replica of the parameters
+    replicas = {d: tree_map(lambda t, d=d: t.to(d), params) for d in set(mesh.flat_devices)}
     t0 = time.perf_counter()
     grads, qs, ss = [], [], []
     for k in range(mesh.size):
-        _, g = bst_value_and_grad(cfg, params, *[parts[key][k] for key in keys])
+        _, g = bst_value_and_grad(cfg, replicas[mesh.flat_devices[k]],
+                                  *[parts[key][k] for key in keys])
         (q, s), _ = compress_grads(g, init_error_feedback(g))
         grads.append(g)
         qs.append(q)
@@ -3806,22 +3996,24 @@ def phase_mesh_reduce(seed: int, device) -> dict:
     reduce_s = time.perf_counter() - t0
     worst, payload, full = 0.0, 0, 0
     for i, mean in enumerate(tree_leaves(means[0])):
-        shard_grads = [tree_leaves(g)[i] for g in grads]
+        shard_grads = [tree_leaves(g)[i].to(mean.device) for g in grads]
         plain = sum(shard_grads[1:], shard_grads[0]) / mesh.size
         scale = max(float(g.abs().max()) for g in shard_grads) / 127
         err = float((mean - plain).abs().max())
         if not (err < 2 * scale or err == 0.0) or not bool(torch.isfinite(mean).all()):
             raise AssertionError(f"mesh reduce leaf {i}: {err} not within 2 x scale {scale}")
-        if any(not torch.equal(m_k, mean) for m_k in (tree_leaves(m)[i] for m in means)):
+        if any(not torch.equal(m_k.to(mean.device), mean)
+               for m_k in (tree_leaves(m)[i] for m in means)):
             raise AssertionError(f"mesh reduce leaf {i}: the shards' means differ")
         worst = max(worst, err / (2 * scale) if scale else 0.0)
         payload += tree_leaves(qs[0])[i].numel()
         full += mean.numel() * 4
-    report = dict(shards=mesh.size, rows_per_shard=BST_TRAIN_BATCH // mesh.size,
+    report = dict(shards=mesh.size, shard_devices=[str(d) for d in mesh.flat_devices],
+                  rows_per_shard=BST_TRAIN_BATCH // mesh.size,
                   leaves=len(tree_leaves(means[0])), max_err_over_2scale=worst,
                   int8_payload_bytes=payload, f32_payload_bytes=full, seconds=reduce_s)
     emit("mesh_reduce", **report)
-    del params, grads, qs, ss, means, parts
+    del params, replicas, grads, qs, ss, means, parts
     free_device(device)
     return report
 
@@ -3935,20 +4127,66 @@ PATH_KERNELS = {
 }
 
 
+# the paths that spread over the visible cards: with more than one card
+# each prints a ``cards`` line and must launch its kernels on every card
+MULTI_CARD_PATHS = ("shard_plane", "multiprocess", "mesh_bst", "mesh_granite", "mesh_gnn",
+                    "mesh_reduce", "mesh_elastic")
+
+
+def n_cards() -> int:
+    import torch
+
+    return torch.cuda.device_count() if torch.cuda.is_available() else 1
+
+
+@contextmanager
+def uncounted():
+    """Launches inside (a kernel held against its plain version, or timed
+    alone) are taken off every count again, per wrapper and per card."""
+    from repro_torch.kernels.runtime import card_launches, launch_counters, reset_launches
+
+    wrappers = {name: w.launches for name, w in launch_counters().items()}
+    cards = card_launches()
+    try:
+        yield
+    finally:
+        reset_launches(wrappers, cards)
+
+
 def counted(path: str, launches: dict, fn, *args):
     """``fn(*args)`` with every launch counter set to 0 just before and read
     just after into ``launches[path]``; raises if a kernel of the path
-    never launched."""
-    from repro_torch.kernels.runtime import launch_counters
+    never launched.  A path of ``MULTI_CARD_PATHS`` on several cards
+    prints a ``cards`` line: each card's launches (``runtime``'s per-card
+    count), its ``max_memory_allocated`` (cards other than 0 reset at the
+    start; card 0's since the phase's own reset) and the bytes
+    ``collectives.shard`` copied between devices in the phase; it raises
+    if a kernel of the path never launched on some card."""
+    import torch
 
+    from repro_torch.kernels.runtime import card_launches, launch_counters, reset_launches
+    from repro_torch.roofline.comm import COPY, CommCounter
+
+    cards = n_cards() if path in MULTI_CARD_PATHS else 1
+    for k in range(1, cards):
+        torch.cuda.reset_peak_memory_stats(k)
     wrappers = launch_counters()
-    for w in wrappers.values():
-        w.launches = 0
-    result = fn(*args)
+    reset_launches()
+    with CommCounter() as comm:
+        result = fn(*args)
     launches[path] = {name: w.launches for name, w in wrappers.items()}
     missing = [n for n in PATH_KERNELS[path] if launches[path][n] <= 0]
     if missing:
         raise AssertionError(f"{path}: kernels never launched: {missing}")
+    if cards > 1:
+        per_card = card_launches()
+        counts = [per_card.get(k, 0) for k in range(cards)]
+        emit("cards", path=path, launches=counts,
+             max_memory_allocated=[torch.cuda.max_memory_allocated(k) for k in range(cards)],
+             shard_copy_bytes=comm.stats()["bytes_by_op"].get(COPY, 0.0),
+             shard_copies=comm.stats()["counts"].get(COPY, 0))
+        if PATH_KERNELS[path] and min(counts) <= 0:
+            raise AssertionError(f"{path}: no launch on some card: {counts}")
     return result
 
 

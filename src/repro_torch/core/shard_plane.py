@@ -139,7 +139,6 @@ from __future__ import annotations
 
 import os
 import threading
-from contextlib import nullcontext
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Union
 
@@ -341,12 +340,6 @@ def _host_count(snap, kind: str) -> int:
     return int(snap.n_edges) if kind == "coo" else 0
 
 
-def _on(device: torch.device):
-    """The device context a hand-written kernel for ``device`` launches
-    under (its launch goes to the current card, not the tensor's)."""
-    return torch.cuda.device(device) if device.type == "cuda" else nullcontext()
-
-
 # ---------------------------------------------------------------------------
 # The plane
 # ---------------------------------------------------------------------------
@@ -378,6 +371,7 @@ class ShardPlane:
         symmetric: bool = False,
         mesh=None,
     ) -> None:
+        from ..kernels.runtime import indexed
         from ..launch.mesh import shard_devices
 
         self.store = store
@@ -390,7 +384,7 @@ class ShardPlane:
             devices = shard_devices(n_devices, store.device)
         elif n_devices is not None and int(n_devices) != len(devices):
             raise ValueError(f"n_devices={n_devices} but {len(devices)} devices given")
-        self.devices = [torch.device(d) for d in devices]
+        self.devices = [indexed(d) for d in devices]
         if not self.devices:
             raise ValueError("a shard plane needs at least one shard")
         wrong = [d for d in self.devices if d.type != store.device.type]
@@ -1048,8 +1042,7 @@ class ShardPlane:
                 if shard is None or not shard.n_live:
                     continue
                 src, rows, length = shard.live()
-                with _on(shard.device):
-                    y = leaf_spmm(rows, hk, length)
+                y = leaf_spmm(rows, hk, length)  # launches on the shard's card
                 out.index_add_(0, src.to(home), y.to(home))
             return merge([out], torch.add, self.ranks)  # other ranks add zeros
 

@@ -65,8 +65,8 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import numpy as np
-import torch
 
+from ..kernels.runtime import indexed
 from .subgraph import SubgraphSnapshot
 
 
@@ -243,7 +243,7 @@ class SnapshotView:
         self._lineage = lineage  # CommitLineage for the dirty-set diff
         self._plane = plane  # ShardPlane routing collective analytics, or None
         self._base = base  # STRONG ref to the compactor's frozen base bundle
-        self.device = torch.device(device)
+        self.device = indexed(device)
 
     # -- point reads ------------------------------------------------------------
     def _local(self, u: int) -> Tuple[SubgraphSnapshot, int]:

@@ -20,7 +20,8 @@ through the decoupled group-commit pipeline (``apply_async``/``flush``,
 :mod:`repro_torch.core.write_pipeline`).
 
 Device: the store's views keep their device materializations (leaf tiles,
-COO, CSR) as torch tensors on ``store.device`` — ``"cuda"`` unless the
+COO, CSR) as torch tensors on ``store.device`` — the current card
+(``cuda:k``, always indexed) unless the
 caller passes another device (the tests pass ``"cpu"``).  Without CUDA and
 without an explicit ``device`` the constructors raise instead of running
 on the CPU.
@@ -39,7 +40,7 @@ import numpy as np
 
 import torch
 
-from ..kernels.runtime import default_device
+from ..kernels.runtime import default_device, indexed
 from .arrays import sorted_unique
 from .clock import LogicalClock
 from .leaf_pool import LeafPool, TieredLeafPool, env_leaf_tiers, parse_leaf_tiers
@@ -97,9 +98,10 @@ class ReadHandle:
 
 
 def _resolve_device(device) -> torch.device:
-    """``device`` as a ``torch.device``; ``None`` means the CUDA card, and
+    """``device`` as an indexed ``torch.device`` (``"cuda"`` names the
+    current card: ``cuda:k``); ``None`` means the current CUDA card, and
     raises when there is none (never a silent CPU fallback)."""
-    return torch.device(device) if device is not None else default_device()
+    return indexed(device) if device is not None else default_device()
 
 
 def _make_pool(leaf_tiers, B, initial_rows):

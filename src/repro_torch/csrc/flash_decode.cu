@@ -668,18 +668,26 @@ flash_decode_mma_kernel(const float* __restrict__ q, const __nv_bfloat16* __rest
   }
 }
 
+constexpr int kMaxCards = 64;  // cards a process may launch on
+
 template <int NK>
 int launch_nk(const float* q, const __nv_bfloat16* k, const __nv_bfloat16* v, const int* kv_len,
               float* pacc, float* pm, float* pl, int B, int S, int KV, int G, int chunk,
               int n_chunks, float softcap, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<NK>();
   static_assert(smem >= sizeof(float) * kWarps * kN * (16 * NK + 2), "state must fit the ring");
-  static bool sized = false;  // once per instantiation, before any graph capture
-  if (!sized) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_decode_mma_kernel<NK>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // The attribute belongs to the current card: set once per card and
+  // instantiation, before any graph capture (the wrapper enters the card).
+  static bool sized[kMaxCards] = {};
+  int card = 0;
+  cudaError_t e = cudaGetDevice(&card);
+  if (e != cudaSuccess) return (int)e;
+  if (card < 0 || card >= kMaxCards) return (int)cudaErrorInvalidDevice;
+  if (!sized[card]) {
+    e = cudaFuncSetAttribute(flash_decode_mma_kernel<NK>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    sized = true;
+    sized[card] = true;
   }
   const float scale = 1.0f / sqrtf((float)(16 * NK));
   flash_decode_mma_kernel<NK><<<dim3(n_chunks, KV, B), kThreads, smem, stream>>>(

@@ -5,7 +5,8 @@ from __future__ import annotations
 
 import torch
 
-from ..runtime import check, count_launch, cuda_input, kernel_fn, on_cpu, stream_ptr
+from ..runtime import (check, check_operands, count_launch, cuda_input, kernel_fn,
+                       launch_on, on_cpu, stream_ptr)
 from .ref import embedding_bag_ref
 
 MODES = {"sum": 0, "mean": 1}
@@ -22,6 +23,7 @@ def embedding_bag(table, ids, weights=None, mode: str = "sum") -> torch.Tensor:
     if mode not in MODES:
         raise ValueError(f"embedding_bag: mode {mode!r} is not sum or mean")
     table = torch.as_tensor(table)
+    check_operands("embedding_bag", table, ids, weights)
     ids = torch.as_tensor(ids, dtype=torch.int32, device=table.device)
     if weights is not None:
         weights = torch.as_tensor(weights, dtype=torch.float32, device=table.device)
@@ -41,11 +43,12 @@ def embedding_bag(table, ids, weights=None, mode: str = "sum") -> torch.Tensor:
     out = torch.empty((n, d), dtype=torch.float32, device=table.device)
     if n and d:
         fn = kernel_fn("embedding_bag", "embedding_bag_launch", "ppppliliip")
-        check(fn(table.data_ptr(), ids.data_ptr(),
-                 weights.data_ptr() if weights is not None else None,
-                 out.data_ptr(), n, k, v, d, MODES[mode], stream_ptr(table)),
-              "embedding_bag")
-        count_launch(embedding_bag)
+        with launch_on(table.device):
+            check(fn(table.data_ptr(), ids.data_ptr(),
+                     weights.data_ptr() if weights is not None else None,
+                     out.data_ptr(), n, k, v, d, MODES[mode], stream_ptr(table)),
+                  "embedding_bag")
+        count_launch(embedding_bag, table.device)
     return out
 
 

@@ -15,7 +15,8 @@ from __future__ import annotations
 
 import torch
 
-from ..runtime import check, count_launch, cuda_input, kernel_fn, on_cpu, stream_ptr
+from ..runtime import (check, check_operands, count_launch, cuda_input, kernel_fn,
+                       launch_on, on_cpu, stream_ptr)
 from .ref import flash_decode_partial_ref, flash_decode_ref
 
 WARPS, ROWS_PER_LANE = 4, 4  # csrc/flash_decode.cu kWarps, kU (route "simt")
@@ -95,14 +96,16 @@ def _launch(q, k, v, kv_len, softcap, normalize: bool):
                 l.data_ptr() if l is not None else None,
                 b, s, kv, g, dh, chunk]
         cap = float(softcap) if softcap is not None else 0.0
-        if kernel == "mma":
-            fn = kernel_fn("flash_decode", "flash_decode_mma_launch", "ppppppppppiiiiiifip")
-            err = fn(*args, cap, int(normalize), stream_ptr(q))
-        else:
-            fn = kernel_fn("flash_decode", "flash_decode_launch", "ppppppppppiiiiiiifip")
-            err = fn(*args, int(k.dtype == torch.bfloat16), cap, int(normalize), stream_ptr(q))
+        with launch_on(q.device):
+            if kernel == "mma":
+                fn = kernel_fn("flash_decode", "flash_decode_mma_launch", "ppppppppppiiiiiifip")
+                err = fn(*args, cap, int(normalize), stream_ptr(q))
+            else:
+                fn = kernel_fn("flash_decode", "flash_decode_launch", "ppppppppppiiiiiiifip")
+                err = fn(*args, int(k.dtype == torch.bfloat16), cap, int(normalize),
+                         stream_ptr(q))
         check(err, "flash_decode")
-        count_launch(flash_decode)
+        count_launch(flash_decode, q.device)
     return out if normalize else (out, m, l)
 
 
@@ -110,6 +113,8 @@ def flash_decode(q, k, v, kv_len, softcap=None) -> torch.Tensor:
     """GQA decode attention for one token: q [B, KV, G, dh] against
     k, v [B, S, KV, dh] (f32 or bf16) over the first ``kv_len[b]`` positions
     -> [B, KV, G, dh] f32.  ``kv_len >= 1`` is a precondition."""
+    k = torch.as_tensor(k)
+    check_operands("flash_decode", k, q, v, kv_len)
     kv_len = torch.as_tensor(kv_len, dtype=torch.int32, device=k.device)
     if on_cpu(k, "flash_decode"):
         return flash_decode_ref(q, k, v, kv_len, softcap=softcap)
@@ -119,6 +124,8 @@ def flash_decode(q, k, v, kv_len, softcap=None) -> torch.Tensor:
 def flash_decode_partial(q, k, v, kv_len, softcap=None):
     """(acc [B,KV,G,dh], m [B,KV,G], l [B,KV,G]) — unnormalized; its kernel
     launches count in ``flash_decode.launches``."""
+    k = torch.as_tensor(k)
+    check_operands("flash_decode_partial", k, q, v, kv_len)
     kv_len = torch.as_tensor(kv_len, dtype=torch.int32, device=k.device)
     if on_cpu(k, "flash_decode_partial"):
         return flash_decode_partial_ref(q, k, v, kv_len, softcap=softcap)

@@ -7,7 +7,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..runtime import check, count_launch, cuda_input, kernel_fn, on_cpu, stream_ptr
+from ..runtime import (check, check_operands, count_launch, cuda_input, kernel_fn,
+                       launch_on, on_cpu, stream_ptr)
 from .ref import SENTINEL, intersect_count_ref
 
 
@@ -33,6 +34,7 @@ def intersect_count(a, b, index_a=None, index_b=None, length_a=None, length_b=No
     ValueError before any launch.
     """
     a = torch.as_tensor(a, dtype=torch.int32)
+    check_operands("intersect_count", a, b, index_a, index_b, length_a, length_b)
     on = a.device
     b = torch.as_tensor(b, dtype=torch.int32, device=on)
     index_a, index_b, length_a, length_b = (
@@ -60,11 +62,12 @@ def intersect_count(a, b, index_a=None, index_b=None, length_a=None, length_b=No
     out = torch.empty(q, dtype=torch.int32, device=on)
     if q:
         fn = kernel_fn("intersect_count", "intersect_count_launch", "pppppppllliip")
-        check(fn(a.data_ptr(), b.data_ptr(),
-                 *(None if t is None else t.data_ptr() for t in ptrs), out.data_ptr(),
-                 q, a.shape[0], b.shape[0], a.shape[1], b.shape[1], stream_ptr(a)),
-              "intersect_count")
-        count_launch(intersect_count)
+        with launch_on(on):
+            check(fn(a.data_ptr(), b.data_ptr(),
+                     *(None if t is None else t.data_ptr() for t in ptrs), out.data_ptr(),
+                     q, a.shape[0], b.shape[0], a.shape[1], b.shape[1], stream_ptr(a)),
+                  "intersect_count")
+        count_launch(intersect_count, on)
     return out
 
 

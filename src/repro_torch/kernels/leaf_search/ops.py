@@ -6,7 +6,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..runtime import check, count_launch, cuda_input, kernel_fn, on_cpu, stream_ptr
+from ..runtime import (check, check_operands, count_launch, cuda_input, kernel_fn,
+                       launch_on, on_cpu, stream_ptr)
 from .ref import leaf_search_ref
 
 
@@ -26,6 +27,7 @@ def leaf_search(rows, targets, index=None, length=None):
     an index outside [0, n), so the next synchronisation raises.
     """
     rows = torch.as_tensor(rows, dtype=torch.int32)
+    check_operands("leaf_search", rows, targets, index, length)
     on = rows.device
     targets = torch.as_tensor(targets, dtype=torch.int32, device=on)
     if index is not None:
@@ -52,12 +54,13 @@ def leaf_search(rows, targets, index=None, length=None):
     pos = torch.empty(q, dtype=torch.int32, device=on)
     if q:
         fn = kernel_fn("leaf_search", "leaf_search_launch", "ppppppllip")
-        check(fn(rows.data_ptr(), targets.data_ptr(),
-                 None if index is None else index.data_ptr(),
-                 None if length is None else length.data_ptr(),
-                 found.data_ptr(), pos.data_ptr(), q, n, b, stream_ptr(rows)),
-              "leaf_search")
-        count_launch(leaf_search)
+        with launch_on(on):
+            check(fn(rows.data_ptr(), targets.data_ptr(),
+                     None if index is None else index.data_ptr(),
+                     None if length is None else length.data_ptr(),
+                     found.data_ptr(), pos.data_ptr(), q, n, b, stream_ptr(rows)),
+                  "leaf_search")
+        count_launch(leaf_search, on)
     return found.view(torch.bool), pos
 
 

@@ -11,6 +11,10 @@
   by a hash of the sources and flags, and loaded with ``ctypes``.  Each
   source exports plain C launch functions that return the ``cudaError_t``
   of the launch; :func:`check` raises on a non-zero one.
+- :func:`check_operands` / :func:`launch_on` — a wrapper checks that its
+  operands share one card, then launches under that card (entered, so
+  the launch goes there and not to the current card); :func:`count_launch`
+  counts each launch per wrapper and per card.
 """
 
 from __future__ import annotations
@@ -22,8 +26,9 @@ import os
 import shutil
 import subprocess
 import threading
+from collections import Counter
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable, Optional
 
 import torch
 
@@ -45,13 +50,37 @@ def is_hopper() -> bool:
 
 
 def default_device() -> torch.device:
-    """The card; raises when there is none (callers may pass ``"cpu"``)."""
+    """The current card, indexed (``cuda:k``); raises when there is none
+    (callers may pass ``"cpu"``)."""
     if not has_cuda():
         raise RuntimeError(
             "no CUDA device: pass device='cpu' explicitly to run the port on "
             "the host"
         )
-    return torch.device("cuda")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def indexed(device) -> torch.device:
+    """``device`` as a ``torch.device`` with its card's index: a bare
+    ``"cuda"`` becomes the current card (inside ``torch.cuda.device(k)``,
+    card k), so stores, shards and meshes name the card they hold.  Where
+    torch sees no card the device stays as given, for the caller to
+    refuse."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None and has_cuda():
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def drain(devices: Optional[Iterable] = None) -> None:
+    """Wait for every CUDA card of ``devices`` (default: every visible
+    card) to finish its queued work; CPU devices need nothing."""
+    if devices is None:
+        cards = range(torch.cuda.device_count()) if has_cuda() else ()
+    else:
+        cards = sorted({indexed(d).index for d in devices if torch.device(d).type == "cuda"})
+    for k in cards:
+        torch.cuda.synchronize(k)
 
 
 def require_accelerator(context: str) -> None:
@@ -144,13 +173,34 @@ def on_cpu(t: torch.Tensor, what: str) -> bool:
 
 
 _count_lock = threading.Lock()
+_card_launches: Counter = Counter()  # card index -> launches of every wrapper
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches`` (under a lock: readers on several
-    threads launch through the same wrapper)."""
+def count_launch(wrapper, device: torch.device) -> None:
+    """Add one to ``wrapper.launches`` and to the launches on ``device``'s
+    card (under a lock: readers on several threads launch through the same
+    wrapper)."""
     with _count_lock:
         wrapper.launches += 1
+        _card_launches[device.index] += 1
+
+
+def card_launches() -> Dict[int, int]:
+    """Launches of every hand-written kernel per card index since the last
+    :func:`reset_launches`."""
+    with _count_lock:
+        return dict(_card_launches)
+
+
+def reset_launches(wrappers: Optional[Dict[str, int]] = None,
+                   cards: Optional[Dict[int, int]] = None) -> None:
+    """Every wrapper's count and every card's count to 0, or to the counts
+    of ``wrappers`` (by name) and ``cards`` (by index) where given."""
+    with _count_lock:
+        for name, w in launch_counters().items():
+            w.launches = (wrappers or {}).get(name, 0)
+        _card_launches.clear()
+        _card_launches.update(cards or {})
 
 
 def launch_counters() -> Dict[str, object]:
@@ -165,6 +215,27 @@ def launch_counters() -> Dict[str, object]:
     return {"leaf_search": leaf_search, "leaf_scan_reduce": leaf_scan_reduce,
             "leaf_spmm": leaf_spmm, "intersect_count": intersect_count,
             "embedding_bag": embedding_bag, "flash_decode": flash_decode}
+
+
+def check_operands(what: str, primary: torch.Tensor, *operands) -> None:
+    """Raise ValueError, naming the devices, unless every tensor operand
+    lies on ``primary``'s device.  Host data (numpy arrays, CPU tensors)
+    beside a card's ``primary`` is the wrapper's to upload; ``None`` and
+    non-tensor operands are skipped.  Called before anything is moved, so
+    a card's tensor never crosses to another card or the host unseen."""
+    dev = primary.device
+    others = {t.device for t in operands if isinstance(t, torch.Tensor)
+              and t.device != dev and not (dev.type == "cuda" and t.device.type == "cpu")}
+    if others:
+        raise ValueError(f"{what}: operands on {sorted(map(str, others | {dev}))}; a "
+                         f"kernel launches on one device, here {dev}")
+
+
+def launch_on(device: torch.device):
+    """The context a hand-written kernel for ``device`` launches under:
+    that card entered, so the launch (on its current stream) goes to the
+    tensor's card and not to the current one."""
+    return torch.cuda.device(device)
 
 
 def check(err: int, what: str) -> None:
@@ -191,16 +262,22 @@ def cuda_input(t: torch.Tensor, dtype: torch.dtype, ndim: int, what: str) -> tor
 
 __all__ = [
     "build_all",
+    "card_launches",
     "check",
+    "check_operands",
     "count_launch",
     "cuda_input",
     "default_device",
+    "drain",
     "has_cuda",
+    "indexed",
     "is_hopper",
     "kernel_fn",
     "kernel_lib",
     "launch_counters",
+    "launch_on",
     "on_cpu",
     "require_accelerator",
+    "reset_launches",
     "stream_ptr",
 ]

@@ -6,7 +6,8 @@ from __future__ import annotations
 
 import torch
 
-from ..runtime import check, count_launch, cuda_input, kernel_fn, on_cpu, stream_ptr
+from ..runtime import (check, check_operands, count_launch, cuda_input, kernel_fn,
+                       launch_on, on_cpu, stream_ptr)
 from .ref import leaf_scan_reduce_ref, leaf_spmm_ref
 
 
@@ -30,6 +31,7 @@ def leaf_scan_reduce(rows, x, length=None) -> torch.Tensor:
     device memory), on the route that :func:`route` names for B and rows.
     """
     rows = torch.as_tensor(rows, dtype=torch.int32)
+    check_operands("leaf_scan_reduce", rows, x, length)
     x = torch.as_tensor(x, dtype=torch.float32, device=rows.device)
     if length is not None:
         length = torch.as_tensor(length, dtype=torch.int32, device=rows.device)
@@ -46,11 +48,12 @@ def leaf_scan_reduce(rows, x, length=None) -> torch.Tensor:
     if n:
         vec4 = route(b, rows.data_ptr()) == "vec4"
         fn = kernel_fn("leaf_scan_reduce", "leaf_scan_reduce_launch", "pppplilip")
-        check(fn(rows.data_ptr(), x.data_ptr(),
-                 None if length is None else length.data_ptr(), out.data_ptr(),
-                 n, b, x.shape[0], int(vec4), stream_ptr(rows)),
-              "leaf_scan_reduce")
-        count_launch(leaf_scan_reduce)
+        with launch_on(rows.device):
+            check(fn(rows.data_ptr(), x.data_ptr(),
+                     None if length is None else length.data_ptr(), out.data_ptr(),
+                     n, b, x.shape[0], int(vec4), stream_ptr(rows)),
+                  "leaf_scan_reduce")
+        count_launch(leaf_scan_reduce, rows.device)
     return out
 
 
@@ -67,6 +70,7 @@ def leaf_spmm(rows, h, length=None) -> torch.Tensor:
     on the route that :func:`route` names.
     """
     rows = torch.as_tensor(rows, dtype=torch.int32)
+    check_operands("leaf_spmm", rows, h, length)
     h = torch.as_tensor(h, dtype=torch.float32, device=rows.device)
     if length is not None:
         length = torch.as_tensor(length, dtype=torch.int32, device=rows.device)
@@ -84,10 +88,11 @@ def leaf_spmm(rows, h, length=None) -> torch.Tensor:
     if n and d:
         vec4 = route(d, h.data_ptr()) == "vec4"
         fn = kernel_fn("leaf_spmm", "leaf_spmm_launch", "ppppliilip")
-        check(fn(rows.data_ptr(), h.data_ptr(),
-                 None if length is None else length.data_ptr(), out.data_ptr(),
-                 n, b, d, nv, int(vec4), stream_ptr(rows)), "leaf_spmm")
-        count_launch(leaf_spmm)
+        with launch_on(rows.device):
+            check(fn(rows.data_ptr(), h.data_ptr(),
+                     None if length is None else length.data_ptr(), out.data_ptr(),
+                     n, b, d, nv, int(vec4), stream_ptr(rows)), "leaf_spmm")
+        count_launch(leaf_spmm, rows.device)
     return out
 
 

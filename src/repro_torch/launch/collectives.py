@@ -3,9 +3,13 @@
 The port's stand-in for ``shard_map``.  A sharded value is a list of
 per-shard tensors, element ``k`` on the mesh's device of flat shard ``k``;
 ``shard`` cuts a tensor into such a list by a ``P`` spec and ``unshard``
-puts one back together.  A sharded form of a model is written as the
-reference's per-shard body, looped over the shards, with these
-collectives where the body calls ``jax.lax``'s:
+puts one back together.  State that stays sharded (a table, expert
+weights, a KV cache) is cut once by ``place`` into a :class:`Placed`: its
+blocks live on their shards' cards, and ``shard`` hands them back as
+they are, so a call moves no parameter or cache bytes between cards.  A
+sharded form of a model is written as the reference's per-shard body,
+looped over the shards, with these collectives where the body calls
+``jax.lax``'s:
 
 - ``axis_index``: each shard's linear index over one axis or a tuple of
   axes, major to minor in the order given (``jax.lax.axis_index``);
@@ -43,7 +47,8 @@ every shard in this process.
 While a :class:`~repro_torch.roofline.comm.CommCounter` is active, each
 collective records itself: in one process by the ring model over its
 group of shards (what the devices would move), across processes each
-``dist.all_reduce`` the backend makes, over the world.
+``dist.all_reduce`` the backend makes, over the world.  ``shard``
+records the bytes it copies to another device under ``"shard-copy"``.
 """
 
 from __future__ import annotations
@@ -97,11 +102,20 @@ def spec_splits(shape, mesh: Mesh, spec: Optional[P]) -> List[Tuple[int, Tuple[s
     return splits
 
 
-def shard(x: torch.Tensor, mesh: Mesh, spec: P) -> List[torch.Tensor]:
-    """``x`` cut by ``spec`` into one block a shard, each on its shard's
-    device: views of ``x`` for shards on its device, one copy each for the
-    others (a replicated block: one copy per device); ``None`` for the
-    shards of other ranks."""
+def _layout(spec: Optional[P]) -> Tuple:
+    """``spec`` with each entry as ``None`` or a tuple of axis names and
+    trailing ``None`` dropped: equal layouts compare equal."""
+    out = [None if e is None else (e,) if isinstance(e, str) else tuple(e)
+           for e in (P() if spec is None else spec)]
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+def _blocks(x: torch.Tensor, mesh: Mesh, spec: P, move: Callable) -> List:
+    """``move(block, device)`` of each local shard's block of ``x`` under
+    ``spec``, once per distinct (device, block): shards that hold the same
+    block on one device share the tensor; ``None`` for other ranks'."""
     splits = [(dim, x.shape[dim] // mesh.axis_size(axes), mesh.axis_index(axes))
               for dim, axes in spec_splits(x.shape, mesh, spec)]
     copies: Dict[tuple, torch.Tensor] = {}
@@ -115,9 +129,108 @@ def shard(x: torch.Tensor, mesh: Mesh, spec: P) -> List[torch.Tensor]:
             blk = blk.narrow(dim, index[k] * size, size)
         key = (dev, blk.storage_offset(), tuple(blk.shape))
         if key not in copies:
-            copies[key] = blk.to(dev)
+            copies[key] = move(blk, dev)
         out.append(copies[key])
     return out
+
+
+class Placed:
+    """A tensor of ``shape`` cut once over ``mesh`` by ``spec``: ``parts[k]``
+    is shard ``k``'s block, resident on its shard's device (one tensor per
+    distinct device and block, shared by the shards that hold it; ``None``
+    for other ranks' shards).  ``device`` is its home, where results for
+    the whole tensor go.  ``shard(placed, mesh, spec)`` returns ``parts``
+    as they are.  Indexing the leading dim (which ``spec`` must leave
+    whole) gives a ``Placed`` of that slice, so a layer-stacked leaf
+    ``[L, ...]`` yields its layers without a copy; ``to(dtype)`` casts the
+    blocks in place of the whole (free when the dtype is theirs)."""
+
+    def __init__(self, parts: Sequence[Optional[torch.Tensor]], mesh: Mesh, spec: P,
+                 shape, dtype: torch.dtype, device) -> None:
+        self.parts, self.mesh, self.spec = list(parts), mesh, P(*_layout(spec))
+        self.shape, self.dtype, self.device = torch.Size(shape), dtype, torch.device(device)
+
+    def dim(self) -> int:
+        return len(self.shape)
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of this rank's distinct blocks."""
+        seen = {id(p): p.nbytes for p in self.parts if p is not None}
+        return sum(seen.values())
+
+    def _each(self, fn: Callable) -> List[Optional[torch.Tensor]]:
+        """``fn`` of each distinct block once, in ``parts``' order."""
+        done: Dict[int, torch.Tensor] = {}
+        return [None if p is None else done.setdefault(id(p), fn(p)) for p in self.parts]
+
+    def __getitem__(self, i: int) -> "Placed":
+        if not isinstance(i, int) or (self.spec and self.spec[0] is not None):
+            raise TypeError(f"Placed{tuple(self.shape)} under {self.spec}: only an int "
+                            "index of an unsplit leading dim")
+        return Placed(self._each(lambda p: p[i]), self.mesh, P(*self.spec[1:]),
+                      self.shape[1:], self.dtype, self.device)
+
+    def to(self, dtype: torch.dtype) -> "Placed":
+        if dtype == self.dtype:
+            return self
+        return Placed(self._each(lambda p: p.to(dtype)), self.mesh, self.spec, self.shape,
+                      dtype, self.device)
+
+    def write(self, dim: int, index: int, value: torch.Tensor) -> None:
+        """``whole.select(dim, index).copy_(value)`` into the blocks that
+        hold position ``index`` of ``dim``: ``value`` (the whole slice, on
+        any device) is cut by the rest of ``spec``, and each holder copies
+        its block of it in place."""
+        spec = list(self.spec) + [None] * (self.dim() - len(self.spec))
+        axes = spec.pop(dim)
+        vals = shard(value.to(self.dtype), self.mesh, P(*spec))
+        size = self.shape[dim] // (1 if axes is None else self.mesh.axis_size(axes))
+        at = [0] * self.mesh.size if axes is None else self.mesh.axis_index(axes)
+        for k, part in enumerate(self.parts):
+            if part is not None and at[k] * size <= index < (at[k] + 1) * size:
+                part.select(dim, index - at[k] * size).copy_(vals[k])
+
+    def __repr__(self) -> str:
+        return f"Placed({tuple(self.shape)}, {self.dtype}, {self.spec}, {self.mesh})"
+
+
+def place(x: torch.Tensor, mesh: Mesh, spec: P) -> Placed:
+    """``x`` cut once by ``spec``: each block a contiguous tensor of its
+    own on its shard's device (a replicated block: one per device), so
+    nothing of ``x`` stays referenced and dropping ``x`` frees it."""
+    parts = _blocks(x, mesh, spec, lambda blk, dev: blk.to(
+        dev, copy=True, memory_format=torch.contiguous_format))
+    return Placed(parts, mesh, spec, x.shape, x.dtype, x.device)
+
+
+def place_zeros(shape, dtype: torch.dtype, mesh: Mesh, spec: P) -> Placed:
+    """A zero tensor of ``shape`` placed by ``spec``, each block allocated on
+    its shard's device (the whole tensor never exists)."""
+    whole = torch.empty(shape, dtype=dtype, device="meta")  # its shape only, no memory
+    parts = _blocks(whole, mesh, spec,
+                    lambda blk, dev: torch.zeros(blk.shape, dtype=dtype, device=dev))
+    return Placed(parts, mesh, spec, whole.shape, dtype, mesh.flat_devices[0])
+
+
+def shard(x, mesh: Mesh, spec: P) -> List[torch.Tensor]:
+    """``x`` cut by ``spec`` into one block a shard, each on its shard's
+    device: views of ``x`` for shards on its device, one copy each for the
+    others (a replicated block: one copy per device), whose bytes go to
+    the active counters as ``"shard-copy"``; ``None`` for the shards of
+    other ranks.  A :class:`Placed` ``x`` placed on ``mesh`` by ``spec``
+    gives its blocks back as they are (another layout raises ValueError)."""
+    if isinstance(x, Placed):
+        if x.mesh is not mesh or _layout(x.spec) != _layout(spec):
+            raise ValueError(f"{x} is not placed on {mesh} by {spec}")
+        return list(x.parts)
+
+    def move(blk, dev):
+        if blk.device != dev:
+            comm.record_copy(blk.nbytes)
+        return blk.to(dev)
+
+    return _blocks(x, mesh, spec, move)
 
 
 def unshard(parts: Sequence[torch.Tensor], mesh: Mesh, spec: P,
@@ -348,5 +461,6 @@ def all_gather(parts: Sequence[torch.Tensor], mesh: Mesh, axes, axis: int = 0,
     return out
 
 
-__all__ = ["P", "RankGroup", "all_gather", "axis_index", "pmax", "psum", "psum_scatter",
-           "merge", "replicate", "shard", "spec_splits", "unshard"]
+__all__ = ["P", "Placed", "RankGroup", "all_gather", "axis_index", "pmax", "psum",
+           "psum_scatter", "merge", "place", "place_zeros", "replicate", "shard",
+           "spec_splits", "unshard"]

@@ -34,7 +34,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..kernels.runtime import default_device
+from ..kernels.runtime import default_device, indexed
 
 
 def shard_devices(n_shards: Optional[int] = None, device=None) -> List[torch.device]:
@@ -45,7 +45,7 @@ def shard_devices(n_shards: Optional[int] = None, device=None) -> List[torch.dev
     ``k % n_cards`` and ``n_shards`` defaults to the card count; on the CPU
     every shard is ``cpu`` and the default is one shard.
     """
-    dev = torch.device(device) if device is not None else default_device()
+    dev = indexed(device) if device is not None else default_device()
     if dev.type == "cpu":
         k = 1 if n_shards is None else int(n_shards)
         cards = None
@@ -72,7 +72,8 @@ class Mesh:
     """Named axes over a grid of shards: ``shape`` maps each axis name to
     its size, in order; ``devices`` is the grid of ``torch.device`` (a
     numpy object array of that shape), flat shard ``k`` at its row-major
-    position ``k``.
+    position ``k``; every device is indexed (a bare ``"cuda"`` becomes the
+    current card).
 
     ``ranks`` (a :class:`~repro_torch.launch.collectives.RankGroup`) spreads
     the shards over processes: shard ``k`` belongs to rank ``k % world``,
@@ -89,7 +90,7 @@ class Mesh:
             raise ValueError(f"{len(devices)} devices for a mesh of shape {shape}")
         self.axis_names = names
         self.shape: Dict[str, int] = dict(zip(names, shape))
-        self.flat_devices = [torch.device(d) for d in devices]
+        self.flat_devices = [indexed(d) for d in devices]
         grid = np.empty(len(devices), dtype=object)
         grid[:] = self.flat_devices
         self.devices = grid.reshape(shape)

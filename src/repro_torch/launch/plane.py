@@ -41,6 +41,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..kernels.runtime import drain
+
 N_INS, N_DELS = 256, 64  # a transaction's inserts and deletes
 WRITE_SHARD = 1  # the shard whose subgraphs the transactions touch
 STEPS = ("before", "after", "migrated")  # the views the collectives run on
@@ -106,9 +108,6 @@ def cross_moves(placement, n_shards: int) -> Dict[int, int]:
     return moves
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def operands(view, seed: int, d: int, device) -> tuple:
@@ -132,10 +131,10 @@ def queries(plane, view, w, h, device) -> tuple:
              "spmm": lambda: plane.spmm(view, h)}
     out, secs = {}, {}
     for name, fn in calls.items():
-        _sync(device)
+        drain(plane.devices)  # every card of the plane, not only ``device``
         t0 = time.perf_counter()
         out[name] = fn()
-        _sync(device)
+        drain(plane.devices)
         secs[name] = time.perf_counter() - t0
     return out, secs
 
@@ -177,7 +176,7 @@ def drive(store, mesh, seed: int, n_txn: int, d: int = 128) -> dict:
             t0 = time.perf_counter()
             plane.sharded_coo(view)
             plane.sharded_blocks(view)
-            _sync(device)
+            drain(mesh.flat_devices)
             out["cold_tiles_s"] = time.perf_counter() - t0
             run("before", view, seed)
             placement = plane.placement_for(len(view.snaps))

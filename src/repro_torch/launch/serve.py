@@ -2,9 +2,11 @@
 
 Batched greedy decode with a KV cache: random weights from ``--seed``, a
 synthetic prompt batch fed token by token, then ``--decode-tokens`` tokens
-per request, reporting tokens/s.  Decode attention runs through the
-``flash_decode`` kernel, so the model must have global layers only; the
-weights and the cache are f32, as in the reference.  ``--smoke`` takes the
+per request, reporting tokens/s.  Decode attention takes its route per
+layer (``serve.decode.serve_attn_fn``): the ``flash_decode`` kernel for a
+global layer, the plain masked attention for a sliding-window layer whose
+window is below the cache length (Gemma-2's local layers); the weights
+and the cache are f32, as in the reference.  ``--smoke`` takes the
 arch's small config; ``--device`` defaults to the card.
 """
 
@@ -17,13 +19,16 @@ import numpy as np
 import torch
 
 from ..configs import registry
+from ..kernels.runtime import drain
 from ..models import transformer as T
-from ..serve.decode import flash_attn_fn, make_decode_step
+from ..serve.decode import make_decode_step, serve_attn_fn
 
 
 def _sync(device: torch.device) -> None:
+    """Drain every visible card (not only ``device``): the timed loop ends
+    when all queued work has."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        drain()
 
 
 def main(argv=None) -> dict:
@@ -51,7 +56,7 @@ def main(argv=None) -> dict:
     gen = torch.Generator(device=device).manual_seed(args.seed)
     dtype = torch.float32
     params = T.init_params(cfg, gen, dtype=dtype, device=device)
-    step = make_decode_step(cfg, compute_dtype=dtype, attn_fn=flash_attn_fn)
+    step = make_decode_step(cfg, compute_dtype=dtype, attn_fn=serve_attn_fn)
 
     b = args.batch
     cache = T.init_cache(cfg, b, args.max_seq, dtype=dtype, device=device)

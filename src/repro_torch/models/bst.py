@@ -28,7 +28,7 @@ import torch.nn.functional as F
 
 from ..configs.base import RecsysConfig
 from ..kernels.embedding_bag import embedding_bag
-from ..launch.collectives import P, axis_index, psum, shard, unshard
+from ..launch.collectives import P, axis_index, place, psum, shard, unshard
 from .common import dense_init, embed_init, fill_tree, rms_norm, upcast
 
 
@@ -101,11 +101,17 @@ def make_sharded_lookup(mesh, axis: str = "model", batch_axes=None):
     The table's rows [V, d] shard over ``axis`` (shard ``k`` of the axis
     holds rows ``[k V/n, (k+1) V/n)``); the ids' leading (batch) dim may
     shard over ``batch_axes``.  Each shard looks its ids up in its rows
-    through ``embedding_lookup`` (the ``embedding_bag`` kernel on the
-    card), zeroes the ids outside them, and one psum of the
+    through ``embedding_lookup`` (the ``embedding_bag`` kernel, launched
+    on the shard's card), zeroes the ids outside them, and one psum of the
     ``[*ids.shape, d]`` output over ``axis`` merges the shards.
-    Differentiable in the table: its gradient is that of the masked take
-    and the psum, each shard's rows from its own ``index_add_``.
+
+    Serving passes the table placed once, ``place(table, mesh, P(axis,
+    None))`` (:func:`place_table`): its blocks stay on their cards and a
+    call moves only the ids and the psum's output.  A whole table is cut
+    on every call (one copy a call for each shard on another card), as the
+    training step does; differentiable in it: its gradient is that of the
+    masked take and the psum, each shard's rows from its own
+    ``index_add_``.
     """
 
     def lookup(table, ids):
@@ -124,6 +130,12 @@ def make_sharded_lookup(mesh, axis: str = "model", batch_axes=None):
                        device=table.device)
 
     return lookup
+
+
+def place_table(table: torch.Tensor, mesh, axis: str = "model"):
+    """``table`` [V, d] placed by rows over ``axis`` for
+    ``make_sharded_lookup``: each block on its shard's card, once."""
+    return place(table, mesh, P(axis, None))
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,10 @@ over a mesh (``make_sharded_moe_ffn``: local dispatch per data shard and
 expert weights split on F; ``make_weight_stationary_moe_ffn``: the decode
 form, weights split on D and F, activations gathered) are ``moe_fn``s for
 ``transformer.forward``/``decode_step``, written with
-:mod:`repro_torch.launch.collectives`.
+:mod:`repro_torch.launch.collectives`.  ``place_experts`` places each
+layer's router and expert weights once by a form's specs
+(``sharded_specs``, ``weight_stationary_specs``); a form handed such
+parameters moves no weight between cards.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from typing import Dict
 import torch
 
 from ..configs.base import LMConfig
-from ..launch.collectives import P, all_gather, axis_index, psum, shard, unshard
+from ..launch.collectives import P, all_gather, axis_index, place, psum, shard, unshard
 from ..launch.mesh import axes_tuple
 from .common import activation, upcast
 
@@ -149,26 +152,51 @@ _EXPERT_KEYS = ("router", "we_gate", "we_up", "we_down")
 
 
 def _shard_layer(lw: Dict, mesh, specs: Dict) -> list:
-    """This layer's router and expert weights cut by ``specs``: one dict a shard."""
+    """This layer's router and expert weights by ``specs``: one dict a
+    shard (placed weights as they are, whole ones cut for this call)."""
     parts = {k: shard(lw[k], mesh, specs[k]) for k in _EXPERT_KEYS}
     return [{k: parts[k][i] for k in _EXPERT_KEYS} for i in range(mesh.size)]
 
 
+def weight_stationary_specs(dp, tp: str = "model") -> Dict[str, P]:
+    """Per-layer specs of ``make_weight_stationary_moe_ffn``'s weights."""
+    return {"router": P(), "we_gate": P(None, dp, tp), "we_up": P(None, dp, tp),
+            "we_down": P(None, tp, dp)}
+
+
+def sharded_specs(tp: str = "model") -> Dict[str, P]:
+    """Per-layer specs of ``make_sharded_moe_ffn``'s weights."""
+    return {"router": P(), "we_gate": P(None, None, tp), "we_up": P(None, None, tp),
+            "we_down": P(None, tp, None)}
+
+
+def place_experts(params: Dict, mesh, specs: Dict) -> Dict:
+    """``params`` with each layer-stacked router and expert leaf placed on
+    ``mesh`` by ``specs`` (the layer dim whole): every block on its
+    shard's card, once.  The other leaves are ``params``' own; the whole
+    expert tensors are not kept, so dropping ``params`` frees them."""
+    layers = {k: (place(v, mesh, P(None, *specs[k])) if k in _EXPERT_KEYS else v)
+              for k, v in params["layers"].items()}
+    return {**params, "layers": layers}
+
+
 def make_weight_stationary_moe_ffn(cfg: LMConfig, mesh, dp, tp: str = "model"):
-    """Decode-path MoE: weights stay put, activations move.
+    """Decode-path MoE: activations move, weights do not.
 
     The expert weights split ``[E, D/dp, F/tp]`` (``we_down`` ``[E, F/tp,
-    D/dp]``); the (tiny) token batch ``x [T, D]``, split over ``dp``, is
-    all-gathered, every shard dispatches the whole batch (capacity from the
-    gathered T), contracts its (D, F) tile, and the partials merge with
-    activation-sized psums: over ``dp`` for the gate and up products, over
-    ``tp`` for the down product, then an all-gather of the D slices.
+    D/dp]``, ``weight_stationary_specs``); placed once by
+    ``place_experts``, each block stays on its shard's card (a whole layer
+    is cut on every call).  The (tiny) token batch ``x [T, D]``, split
+    over ``dp``, is all-gathered, every shard dispatches the whole batch
+    (capacity from the gathered T), contracts its (D, F) tile, and the
+    partials merge with activation-sized psums: over ``dp`` for the gate
+    and up products, over ``tp`` for the down product, then an all-gather
+    of the D slices.
     Returns ``moe_fn(lw, x) -> [T, D]`` on x's device.
     """
     dp_axes = axes_tuple(dp)
     n_dp = mesh.axis_size(dp_axes)
-    specs = {"router": P(), "we_gate": P(None, dp, tp), "we_up": P(None, dp, tp),
-             "we_down": P(None, tp, dp)}
+    specs = weight_stationary_specs(dp, tp)
     act = activation(cfg.act)
     E = cfg.moe.n_experts
 
@@ -202,11 +230,11 @@ def make_sharded_moe_ffn(cfg: LMConfig, mesh, dp, tp: str = "model"):
     Tokens ``x [T, D]`` stay on their ``dp`` shard (each shard's capacity
     dispatch is its own, over its T/dp tokens); the expert weights split
     their hidden axis over ``tp`` (``[E, D, F/tp]``, ``we_down`` ``[E,
-    F/tp, D]``), and the down product's partials merge with one psum over
+    F/tp, D]``, ``sharded_specs``; placed once by ``place_experts`` or cut
+    per call), and the down product's partials merge with one psum over
     ``tp``.  Returns ``moe_fn(lw, x) -> [T, D]`` on x's device.
     """
-    specs = {"router": P(), "we_gate": P(None, None, tp), "we_up": P(None, None, tp),
-             "we_down": P(None, tp, None)}
+    specs = sharded_specs(tp)
 
     def moe_fn(lw: Dict, x2d: torch.Tensor) -> torch.Tensor:
         lw_l = _shard_layer(lw, mesh, specs)

@@ -282,6 +282,16 @@ def init_cache(cfg: LMConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _write_kv(layer_cache, pos: int, new: torch.Tensor) -> None:
+    """``layer_cache[:, pos] = new`` in place; a placed cache (a
+    ``collectives.Placed``, one slice of the sequence a shard) writes into
+    the blocks that hold ``pos``."""
+    if isinstance(layer_cache, torch.Tensor):
+        layer_cache[:, pos] = new.to(layer_cache.dtype)
+    else:
+        layer_cache.write(1, pos, new)
+
+
 def decode_step(
     cfg: LMConfig,
     params: Dict,
@@ -296,9 +306,11 @@ def decode_step(
 
     The new keys and values are written into ``cache`` at ``pos`` IN PLACE
     (the reference returns an updated copy); the returned cache is the
-    same dict.  Each layer's weights are cast to ``compute_dtype``, which
-    is free when the parameters already have that dtype: keep them so on
-    the card, where a cast per step would move the whole model.
+    same dict.  Its leaves may be placed over a mesh
+    (``serve.decode.init_sp_cache``), each shard holding its slice.  Each
+    layer's weights are cast to ``compute_dtype``, which is free when the
+    parameters already have that dtype: keep them so on the card, where a
+    cast per step would move the whole model.
 
     ``attn_fn(q, k_cache, v_cache, pos, window, cap) -> [B, 1, H, dh]``
     defaults to the plain ``decode_attention_ref``; serve/decode.py
@@ -322,8 +334,8 @@ def decode_step(
         h = rms_norm(x, lw["attn_norm"], cfg.norm_eps, zc)
         q, k, v = _project_qkv(cfg, lw, h, positions)
         k_cache, v_cache = cache["k"][i], cache["v"][i]
-        k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
-        v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
+        _write_kv(k_cache, pos, k[:, 0])
+        _write_kv(v_cache, pos, v[:, 0])
         attn = attn_fn(q, k_cache, v_cache, pos, window, cfg.attn_softcap)
         attn = attn.reshape(b, 1, -1).to(x.dtype) @ lw["wo"]
         if cfg.post_norms:

@@ -13,7 +13,10 @@ joins.  A device moves, for one call over a group of ``s``:
     all-to-all        (s-1)/s * operand bytes
     collective-permute          operand bytes
 
-A call over a group of one moves nothing and is not counted.
+A call over a group of one moves nothing and is not counted.  Besides
+the collectives, ``collectives.shard`` records each block it copies to
+another device (:func:`record_copy`) under ``"shard-copy"``: the bytes
+themselves, not a ring model, kept out of ``per_device_bytes``.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from collections import Counter, defaultdict
 from typing import Dict, List
 
 OPS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all", "collective-permute")
+COPY = "shard-copy"
 
 
 def ring_bytes(op: str, operand_bytes: float, result_bytes: float, group_size: int) -> float:
@@ -67,6 +71,12 @@ class CommCounter:
             self.counts[op] += 1
             self.bytes_by_op[op] += b
 
+    def add_copy(self, nbytes: int) -> None:
+        """One block ``shard`` copied to another device."""
+        with self._lock:
+            self.counts[COPY] += 1
+            self.bytes_by_op[COPY] += float(nbytes)
+
     def stats(self) -> Dict:
         with self._lock:
             return {
@@ -100,4 +110,15 @@ def record(op: str, operand_bytes: int, result_bytes: int, group_size: int) -> N
         c.add(op, operand_bytes, result_bytes, group_size)
 
 
-__all__ = ["CommCounter", "OPS", "record", "ring_bytes"]
+def record_copy(nbytes: int) -> None:
+    """One block copied to another device by ``collectives.shard``, into
+    every active counter."""
+    if not _active:
+        return
+    with _active_lock:
+        counters = list(_active)
+    for c in counters:
+        c.add_copy(nbytes)
+
+
+__all__ = ["COPY", "CommCounter", "OPS", "record", "record_copy", "ring_bytes"]

@@ -2,7 +2,9 @@
 
 ``make_decode_step`` builds ``step(params, cache, tokens, pos)``;
 ``flash_attn_fn`` serves its decode attention through the ``flash_decode``
-kernel, and ``make_sp_attn_fn`` sequence-parallel over a mesh: the cache's
+kernel, ``serve_attn_fn`` chooses per layer (the kernel for a global
+layer, ``decode_attention_ref`` for a sliding-window one), and
+``make_sp_attn_fn`` sequence-parallel over a mesh: the cache's
 sequence axis splits over mesh axes, every shard computes softmax partials
 over its slice, and the partials merge with one pmax and two psums whose
 payload is O(B*H*dh), independent of the sequence length.  A ``moe_fn``
@@ -19,7 +21,7 @@ import torch
 
 from ..configs.base import LMConfig
 from ..kernels.flash_decode import flash_decode
-from ..launch.collectives import P, axis_index, pmax, psum, shard, unshard
+from ..launch.collectives import P, axis_index, place, place_zeros, pmax, psum, shard, unshard
 from ..launch.mesh import axes_tuple
 from ..models import transformer as T
 from ..models.common import softcap as _softcap
@@ -57,6 +59,24 @@ def make_flash_attn_fn(decode=flash_decode):
 flash_attn_fn = make_flash_attn_fn()
 
 
+def make_serve_attn_fn(flash=flash_attn_fn, plain=T.decode_attention_ref):
+    """The serve launcher's ``attn_fn``: the route chosen per layer, before
+    any call.  A global layer (``window`` at least the cache length) goes
+    through ``flash`` (the ``flash_decode`` kernel on the card); a
+    sliding-window layer through ``plain``, the port's counterpart of the
+    reference's XLA decode attention, which masks positions more than
+    ``window`` behind ``pos`` (the kernel has no window)."""
+
+    def attn_fn(q, k_cache, v_cache, pos, window, cap):
+        route = plain if window < k_cache.shape[1] else flash
+        return route(q, k_cache, v_cache, pos, window, cap)
+
+    return attn_fn
+
+
+serve_attn_fn = make_serve_attn_fn()
+
+
 def make_sp_attn_fn(mesh, seq_axes, batch_axes=None):
     """Sequence-parallel decode attention over ``seq_axes`` of ``mesh``.
 
@@ -68,10 +88,11 @@ def make_sp_attn_fn(mesh, seq_axes, batch_axes=None):
     reference computes it outside Pallas): f32 scores, the softcap, the
     window mask with -2.0e38, one pmax and two psums over ``seq_axes`` (one
     axis at a time, as the reference's loop), ``acc / max(l, 1e-30)``.  No
-    collective touches the batch axes.  Each call slices the one cache
-    tensor along S: views on one card, one copy a step for shards on other
-    cards (a cache resident on each card comes with the multi-process
-    plane).
+    collective touches the batch axes.  A cache from ``init_sp_cache`` (or
+    ``place_sp_cache``) is read in place: each shard's slice lives on its
+    card, and a step moves only q, the partials and the output.  A whole
+    cache tensor is cut on every call (one copy a step for each shard on
+    another card).
     """
     axes = axes_tuple(seq_axes)
     bspec = batch_axes
@@ -108,6 +129,30 @@ def make_sp_attn_fn(mesh, seq_axes, batch_axes=None):
         return unshard(outs, mesh, P(bspec, None, None, None), device=q.device)
 
     return attn_fn
+
+
+def sp_cache_spec(seq_axes, batch_axes=None) -> P:
+    """The spec of a layer-stacked cache leaf ``[L, B, S, KV, dh]`` under
+    ``make_sp_attn_fn(mesh, seq_axes, batch_axes)``."""
+    return P(None, batch_axes, axes_tuple(seq_axes), None, None)
+
+
+def init_sp_cache(cfg: LMConfig, batch: int, max_seq: int, mesh, seq_axes, batch_axes=None,
+                  dtype=torch.bfloat16) -> dict:
+    """A zero KV cache ``{"k", "v"}`` for sequence-parallel decode, each
+    shard's slice ``[L, B/batch, S/seq, KV, dh]`` allocated on its own
+    card (the whole cache never exists); ``decode_step`` writes a new
+    token into the slice that holds its position."""
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.d_head)
+    spec = sp_cache_spec(seq_axes, batch_axes)
+    return {name: place_zeros(shape, dtype, mesh, spec) for name in ("k", "v")}
+
+
+def place_sp_cache(cache: dict, mesh, seq_axes, batch_axes=None) -> dict:
+    """A whole cache (``transformer.init_cache``'s) placed for
+    ``make_sp_attn_fn``: each shard's slice copied to its card once."""
+    spec = sp_cache_spec(seq_axes, batch_axes)
+    return {name: place(t, mesh, spec) for name, t in cache.items()}
 
 
 def make_decode_step(cfg: LMConfig, compute_dtype=torch.bfloat16, attn_fn=None,

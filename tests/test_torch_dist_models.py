@@ -50,13 +50,16 @@ from repro_torch.configs.base import LMConfig, MoEConfig
 from repro_torch.launch.collectives import P, shard, unshard
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import moe as TM
-from repro_torch.models.bst import make_sharded_lookup
+from repro_torch.models import transformer as T
+from repro_torch.models.bst import make_sharded_lookup, place_table
 from repro_torch.models.gnn import make_shardmap_gather, make_shardmap_scatter
 from repro_torch.models.params import gnn_params_from_numpy
 from repro_torch.optim import adamw
 from repro_torch.optim.compression import psum_compressed, quantize_int8
 from repro_torch.optim.tree import tree_leaves
-from repro_torch.serve.decode import make_sp_attn_fn
+from repro_torch.roofline.comm import CommCounter
+from repro_torch.serve.decode import (init_sp_cache, make_decode_step, make_sp_attn_fn,
+                                      place_sp_cache, sp_cache_spec)
 from repro_torch.train.step import make_gnn_train_step
 
 TESTS = str(Path(__file__).resolve().parent)
@@ -348,3 +351,99 @@ def test_elastic_reshard_8_to_2_bitwise(ref):
     for k in tree:
         got = unshard(placed2[k], mesh2, specs[k]).numpy()
         assert np.array_equal(got, ref["elastic_" + k]) and np.array_equal(got, tree[k])
+
+
+# ---------------------------------------------------------------------------
+# placed state: the same forms, their tables, expert weights and caches
+# cut once (``collectives.place``), bitwise the per-call route on four
+# CPU shards (which the tests above hold against the reference)
+FOUR = {"model4": ((4,), ("model",)), "d2m2": ((2, 2), ("data", "model"))}
+
+
+@pytest.mark.parametrize("name", list(FOUR))
+def test_placed_lookup_bitwise_the_per_call_route(name):
+    mesh = make_host_mesh(*FOUR[name])
+    table, ids, _ = C.lookup_inputs()
+    batch = "data" if "data" in mesh.shape else None
+    lookup = make_sharded_lookup(mesh, "model", batch_axes=batch)
+    placed = place_table(t(table), mesh)
+    with CommCounter() as c:
+        got = lookup(placed, t(ids))
+    assert torch.equal(got, lookup(t(table), t(ids)))
+    assert "shard-copy" not in c.stats()["counts"]  # one device: nothing copied
+
+
+@pytest.mark.parametrize("form", ["sharded", "stationary"])
+def test_placed_moe_forms_bitwise_the_per_call_route(form):
+    """Both forms on a (data=2, model=2) mesh, each of two stacked layers'
+    weights placed by the form's specs, against the same weights whole."""
+    mesh = make_host_mesh(*FOUR["d2m2"])
+    lw, x = C.moe_inputs()
+    cfg = LMConfig(**C.MOE_LM, moe=MoEConfig(**C.MOE))
+    rng = np.random.default_rng(11)
+    layers = {k: torch.stack([t(v), t(v + 0.1 * rng.normal(size=v.shape).astype(v.dtype))])
+              for k, v in lw.items()}
+    if form == "sharded":
+        make, specs = TM.make_sharded_moe_ffn, TM.sharded_specs("model")
+    else:
+        make, specs = TM.make_weight_stationary_moe_ffn, TM.weight_stationary_specs("data")
+    moe_fn = make(cfg, mesh, "data", "model")
+    placed = TM.place_experts({"layers": layers}, mesh, specs)["layers"]
+    for i in range(2):
+        got = moe_fn({k: v[i] for k, v in placed.items()}, t(x))
+        assert torch.equal(got, moe_fn({k: v[i] for k, v in layers.items()}, t(x)))
+
+
+def granite_smoke():
+    cfg = registry.get_smoke_config("granite-moe-3b-a800m")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    return cfg, params
+
+
+def test_placed_sp_decode_bitwise_the_per_call_route():
+    """Granite's SMOKE config on (data=2, model=2): SP attention over
+    ``model`` and the weight-stationary MoE, with the experts placed and
+    the cache allocated per shard (``init_sp_cache``), against the same
+    step on the whole weights and cache: logits bitwise at every step,
+    across the cache's slice boundaries (16 positions, 8 a slice), and the
+    two caches equal at the end."""
+    mesh = make_host_mesh(*FOUR["d2m2"])
+    cfg, params = granite_smoke()
+    step = make_decode_step(cfg, torch.float32, attn_fn=make_sp_attn_fn(mesh, ("model",), "data"),
+                            moe_fn=TM.make_weight_stationary_moe_ffn(cfg, mesh, "data", "model"))
+    placed = TM.place_experts(params, mesh, TM.weight_stationary_specs("data", "model"))
+    whole = T.init_cache(cfg, 4, 16, dtype=torch.float32, device="cpu")
+    per_shard = init_sp_cache(cfg, 4, 16, mesh, ("model",), "data", dtype=torch.float32)
+    assert [tuple(p.shape) for p in per_shard["k"].parts] == \
+        [(cfg.n_layers, 2, 8, cfg.n_kv_heads, cfg.d_head)] * 4
+    tok = torch.from_numpy(np.random.default_rng(12).integers(0, cfg.vocab, (4, 1), dtype=np.int32))
+    for pos in range(12):
+        want, nxt, _ = step(params, whole, tok, pos)
+        got, _, _ = step(placed, per_shard, tok, pos)
+        assert torch.equal(got, want), pos
+        tok = nxt[:, None]
+    spec = sp_cache_spec(("model",), "data")
+    for name in ("k", "v"):
+        assert torch.equal(unshard(per_shard[name].parts, mesh, spec), whole[name])
+    # a whole cache placed once continues the same decode
+    again = place_sp_cache(whole, mesh, ("model",), "data")
+    want, _, _ = step(params, whole, tok, 12)
+    got, _, _ = step(placed, again, tok, 12)
+    assert torch.equal(got, want)
+
+
+def test_placed_decode_cache_write_lands_in_the_slice_that_owns_pos():
+    """Positions 7, 8 and 15 of a 16-position cache over 4 seq shards
+    (slices of 4): each step writes its token's K/V into one slice only."""
+    mesh = make_host_mesh((4,), ("model",))
+    cfg, params = granite_smoke()
+    step = make_decode_step(cfg, torch.float32, attn_fn=make_sp_attn_fn(mesh, ("model",)))
+    cache = init_sp_cache(cfg, 2, 16, mesh, ("model",), dtype=torch.float32)
+    tok = torch.zeros((2, 1), dtype=torch.int32)
+    for pos in (3, 4, 7, 8, 15):
+        before = [p.clone() for p in cache["k"].parts]
+        step(params, cache, tok, pos)
+        changed = [k for k, (a, b) in enumerate(zip(before, cache["k"].parts))
+                   if not torch.equal(a, b)]
+        assert changed == [pos // 4], pos
+        assert cache["k"].parts[pos // 4][:, :, pos % 4].abs().sum() > 0

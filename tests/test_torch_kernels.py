@@ -537,23 +537,26 @@ def test_cpu_model_kernels_launch_nothing():
 def test_launch_counter_is_exact_across_threads():
     import threading
 
-    from repro_torch.kernels.runtime import count_launch
+    from repro_torch.kernels.runtime import card_launches, count_launch
 
     def wrapper():
         pass
 
     wrapper.launches = 0
+    before = card_launches()
 
-    def bump():
+    def bump(card):
         for _ in range(20000):
-            count_launch(wrapper)
+            count_launch(wrapper, torch.device("cuda", card))
 
-    threads = [threading.Thread(target=bump) for _ in range(4)]
+    threads = [threading.Thread(target=bump, args=(k % 2 + 1,)) for k in range(4)]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     assert wrapper.launches == 80000
+    after = card_launches()
+    assert [after.get(k, 0) - before.get(k, 0) for k in (1, 2)] == [40000, 40000]
 
 
 def test_launch_signatures_match_the_sources():
@@ -588,6 +591,23 @@ def test_other_devices_raise():
         flash_decode(torch.zeros((1, 1, 2, 4), device="meta"), k, k, [8])
     with pytest.raises(ValueError, match="mode"):
         embedding_bag(torch.zeros((8, 4)), torch.zeros((2, 2), dtype=torch.int32), mode="max")
+
+
+def test_operands_on_two_devices_raise():
+    """Every wrapper checks its tensor operands before it moves any: a
+    device beside the primary operand's (here the meta device beside CPU
+    tiles) raises ValueError naming both, and nothing launches."""
+    rows = torch.zeros((4, 16), dtype=torch.int32)
+    meta = torch.zeros(4, dtype=torch.int32, device="meta")
+    h = torch.zeros((8, 4), device="meta")
+    calls = [lambda: leaf_search(rows, meta), lambda: leaf_scan_reduce(rows, meta.float()),
+             lambda: leaf_spmm(rows, h), lambda: intersect_count(rows, rows, meta, meta),
+             lambda: embedding_bag(torch.zeros((8, 4)), meta[:, None]),
+             lambda: flash_decode(torch.zeros((1, 1, 2, 4), device="meta"),
+                                  torch.zeros((1, 8, 1, 4)), torch.zeros((1, 8, 1, 4)), [8])]
+    for call in calls:
+        with pytest.raises(ValueError, match=r"\['cpu', 'meta'\]"):
+            call()
 
 
 @pytest.mark.cuda

@@ -17,7 +17,8 @@ from repro_torch.models import bst as B
 from repro_torch.models import moe as TM
 from repro_torch.models import transformer as T
 from repro_torch.optim.tree import tree_leaves, tree_map
-from repro_torch.serve.decode import flash_attn_fn, make_decode_step, make_prefill_step
+from repro_torch.serve.decode import (flash_attn_fn, make_decode_step, make_prefill_step,
+                                      serve_attn_fn)
 from repro_torch.train.step import bst_value_and_grad, lm_value_and_grad
 
 pytestmark = [pytest.mark.cuda,
@@ -115,6 +116,42 @@ def test_prefill_on_card_matches_flash_decode(arch):
     assert flash_decode.launches - n0 == 16 * cfg.n_layers
     last = make_prefill_step(cfg, torch.float32, attn_chunk=8)(params, toks)
     torch.testing.assert_close(last, logits, rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.parametrize("arch", ["gemma2-27b", "qwen3-32b"])
+def test_full_width_decode_on_card_matches_cpu(arch):
+    """Two layers at full width (Gemma-2: one local layer of window 4,096
+    and one global, softcaps 50 and 30; Qwen3: qk-norm), f32 weights and
+    a bf16 cache of 8,192 rows filled to 6,000, past the window: three
+    steps through the serve launcher's route on the card (the kernel's
+    tensor-core route for a global layer: f32 K/V has no kernel for dh
+    144 or 80; ``decode_attention_ref`` for the local one) against the
+    plain route on the CPU on the same weights and cache.  Logits within
+    3e-4 of their largest magnitude; one launch a global layer a step."""
+    from dataclasses import replace
+
+    cfg = replace(registry.get_config(arch), n_layers=2)
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    cache = T.init_cache(cfg, 2, 8192, dtype=torch.bfloat16, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    first = 6000
+    for name in ("k", "v"):
+        cache[name][:, :, :first].normal_(generator=g)
+    host = {"params": tree_map(lambda t: t.cpu(), params),
+            "cache": {k: v.cpu() for k, v in cache.items()}}
+    card_step = make_decode_step(cfg, torch.float32, attn_fn=serve_attn_fn)
+    cpu_step = make_decode_step(cfg, torch.float32)
+    tok = torch.randint(0, cfg.vocab, (2, 1), generator=torch.Generator().manual_seed(2),
+                        dtype=torch.int32)
+    globals_ = cfg.n_layers - sum(T.layer_is_local(cfg))
+    n0 = flash_decode.launches
+    for i in range(3):
+        got, _, _ = card_step(params, cache, tok.cuda(), first + i)
+        want, nxt, _ = cpu_step(host["params"], host["cache"], tok, first + i)
+        scale = float(want.abs().max())
+        assert float((got.cpu() - want).abs().max()) <= 3e-4 * scale, i
+        tok = nxt[:, None]
+    assert flash_decode.launches - n0 == 3 * globals_
 
 
 def test_bst_grads_on_card_match_cpu():

@@ -15,14 +15,18 @@ import torch
 
 from repro_torch.launch.collectives import (
     P,
+    Placed,
     all_gather,
     axis_index,
+    place,
+    place_zeros,
     pmax,
     psum,
     psum_scatter,
     shard,
     unshard,
 )
+from repro_torch.roofline.comm import CommCounter
 from repro_torch.launch.mesh import Mesh, data_axes, make_host_mesh, make_mesh, shard_devices
 
 MESHES = {"8": ((8,), ("data",)), "2x4": ((2, 4), ("data", "model"))}
@@ -224,3 +228,84 @@ def test_replicated_blocks_share_one_tensor_per_device(mesh_name):
     parts = shard(x, mesh, P())
     assert all(p is parts[0] for p in parts) and parts[0] is x
     assert torch.equal(unshard(parts, mesh, P()), x)
+
+
+# ---------------------------------------------------------------------------
+# placement: state cut once, handed back by shard as it is
+PLACE_SPECS = [P("model", None), P(None, ("data", "model")), P("data", "model"), P()]
+
+
+@pytest.mark.parametrize("spec", PLACE_SPECS)
+def test_shard_of_placed_returns_the_placed_tensors(spec):
+    mesh = mesh_of("2x4")
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(8, 16)).astype(np.float32))
+    placed = place(x, mesh, spec)
+    with CommCounter() as c:
+        parts = shard(placed, mesh, spec)
+    assert all(p is q for p, q in zip(parts, placed.parts))
+    assert c.stats()["counts"] == {} and c.stats()["bytes_by_op"] == {}
+    # the blocks are copies of their own, equal to the per-call cut
+    for got, want in zip(parts, shard(x, mesh, spec)):
+        assert torch.equal(got, want) and got.is_contiguous()
+        assert got.untyped_storage().data_ptr() != x.untyped_storage().data_ptr()
+    assert torch.equal(unshard(parts, mesh, spec), x)
+    # a spec spelled otherwise names the same layout; another layout raises
+    assert shard(placed, mesh, P(*spec, None)) == parts
+    with pytest.raises(ValueError, match="not placed"):
+        shard(placed, mesh, P(None, "data") if spec != P(None, "data") else P("model"))
+    with pytest.raises(ValueError, match="not placed"):
+        shard(placed, make_host_mesh((2, 4), ("data", "model")), spec)
+
+
+def test_placed_layers_casts_and_bytes():
+    mesh = mesh_of("2x4")
+    x = torch.arange(3 * 8 * 4, dtype=torch.float32).reshape(3, 8, 4)
+    placed = place(x, mesh, P(None, "model"))
+    assert isinstance(placed, Placed) and placed.shape == x.shape
+    layer = placed[1]
+    assert layer.shape == (8, 4) and layer.spec == P(("model",))
+    assert torch.equal(unshard(shard(layer, mesh, P("model")), mesh, P("model")), x[1])
+    assert placed.to(torch.float32) is placed
+    half = layer.to(torch.bfloat16)
+    assert half.dtype == torch.bfloat16 and half.parts[0].dtype == torch.bfloat16
+    # shards that hold one block on one device share one tensor
+    assert placed.nbytes == x.nbytes
+    assert place(x, mesh, P()).nbytes == x.nbytes
+    with pytest.raises(TypeError):
+        place(torch.zeros(4, 8), mesh, P("data"))[0]
+
+
+def test_place_zeros_and_write_at_slice_boundaries():
+    """A placed [B, S, d] written at every position, across the S slices
+    (size 2 over the 4 model shards), equals the whole tensor written the
+    same way; each write lands in the one slice that owns its position."""
+    mesh = mesh_of("2x4")
+    spec = P("data", "model", None)
+    placed = place_zeros((4, 8, 3), torch.float32, mesh, spec)
+    assert [tuple(p.shape) for p in placed.parts] == [(2, 2, 3)] * 8
+    whole = torch.zeros(4, 8, 3)
+    rng = np.random.default_rng(4)
+    for pos in (1, 2, 3, 4, 7, 0, 5, 6):
+        new = torch.from_numpy(rng.normal(size=(4, 3)).astype(np.float32))
+        before = [p.clone() for p in placed.parts]
+        placed.write(1, pos, new)
+        whole[:, pos] = new
+        changed = [k for k, (a, b) in enumerate(zip(before, placed.parts))
+                   if not torch.equal(a, b)]
+        owner = pos // 2
+        assert changed == [k for k in range(8) if k % 4 == owner]
+        assert torch.equal(unshard(placed.parts, mesh, spec), whole)
+
+
+def test_shard_records_copies_to_another_device():
+    """Only a copy to another device counts: a CPU tensor cut over CPU
+    shards copies nothing; over shards on the meta device, every block."""
+    with CommCounter() as c:
+        shard(torch.zeros(8, 4), mesh_of("2x4"), P("model"))
+    assert c.stats()["counts"] == {}
+    meta = Mesh([torch.device("meta")] * 8, (2, 4), ("data", "model"))
+    with CommCounter() as c:
+        shard(torch.zeros(8, 4), meta, P("model"))
+    st = c.stats()
+    assert st["counts"] == {"shard-copy": 4} and st["bytes_by_op"] == {"shard-copy": 4 * 2 * 4 * 4}
+    assert st["per_device_bytes"] == 0.0

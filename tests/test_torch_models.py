@@ -30,7 +30,8 @@ from repro_torch.models import bst as B
 from repro_torch.models import common as C
 from repro_torch.models import transformer as T
 from repro_torch.models.params import bst_params_from_numpy, lm_params_from_numpy
-from repro_torch.serve.decode import flash_attn_fn, make_decode_step, make_flash_attn_fn
+from repro_torch.serve.decode import (flash_attn_fn, make_decode_step, make_flash_attn_fn,
+                                      make_serve_attn_fn)
 
 GLOBAL_ARCHS = ["qwen2.5-14b", "qwen3-32b"]
 DENSE_ARCHS = GLOBAL_ARCHS + ["gemma2-27b"]
@@ -353,6 +354,67 @@ def test_serve_main_smoke_on_cpu(capsys):
         toks.append(nxt[:, None])
     assert torch.equal(torch.cat(toks, 1), res["tokens"])
     torch.testing.assert_close(cache["k"], res["cache"]["k"], rtol=1e-5, atol=1e-6)
+
+
+def test_serve_main_decodes_gemma2_as_the_reference():
+    """Gemma-2's SMOKE config through the launcher at its defaults (cache
+    128, past the local window of 8): the reference's decode loop on the
+    same parameters gives the same tokens, and the prompt's and the last
+    step's logits within rtol=atol=3e-4."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import registry as R
+    from repro.models import transformer as RT
+    from repro.serve.decode import make_decode_step as ref_decode_step
+    from repro_torch.launch.serve import main
+
+    res = main(["--arch", "gemma2-27b", "--smoke", "--device", "cpu"])
+    cfg = R.get_smoke_config("gemma2-27b")
+    assert res["cfg"].local_window < 128
+    params = jax.tree.map(lambda p: jnp.asarray(p.numpy()), res["params"])
+    step = jax.jit(ref_decode_step(cfg, compute_dtype=jnp.float32))
+    cache = RT.init_cache(cfg, 4, 128, dtype=jnp.float32)
+    prompt = res["prompt"].numpy()
+    for t in range(prompt.shape[1]):
+        logits, nxt, cache = step(params, cache, prompt[:, t:t + 1], jnp.int32(t))
+    np.testing.assert_allclose(res["prompt_logits"].numpy(), np.asarray(logits),
+                               rtol=3e-4, atol=3e-4)
+    toks = [np.asarray(nxt)[:, None]]
+    for i in range(res["tokens"].shape[1] - 1):
+        logits, nxt, cache = step(params, cache, toks[-1], jnp.int32(prompt.shape[1] + i))
+        toks.append(np.asarray(nxt)[:, None])
+    assert np.array_equal(np.concatenate(toks, 1), res["tokens"].numpy())
+    np.testing.assert_allclose(res["logits"].numpy(), np.asarray(logits), rtol=3e-4, atol=3e-4)
+
+
+def test_serve_attn_fn_routes_global_layers_to_the_kernel():
+    """The launcher's route, chosen per layer before any call: Gemma-2's
+    global layers go to the flash-decode route, its local layers (window 8
+    below the 16-row cache) to ``decode_attention_ref``; Qwen2.5's layers
+    are all global."""
+    for arch in ("gemma2-27b", "qwen2.5-14b"):
+        cfg = registry.get_smoke_config(arch)
+        params = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        cache = T.init_cache(cfg, 2, 16, dtype=torch.float32, device="cpu")
+        seen = []
+
+        def spy(name, fn):
+            def attn(q, k, v, pos, window, cap):
+                seen.append((name, window))
+                return fn(q, k, v, pos, window, cap)
+            return attn
+
+        attn_fn = make_serve_attn_fn(spy("flash", flash_attn_fn),
+                                     spy("plain", T.decode_attention_ref))
+        tok = torch.zeros((2, 1), dtype=torch.int32)
+        for pos in range(10):
+            T.decode_step(cfg, params, tok, cache, pos, compute_dtype=torch.float32,
+                          attn_fn=attn_fn)
+        local = T.layer_is_local(cfg)
+        want = [("plain", cfg.local_window) if loc else ("flash", 16) for loc in local] * 10
+        assert seen == want
+        assert ("plain" in dict(seen)) == (arch == "gemma2-27b")
 
 
 def test_serve_main_refuses_non_lm_and_overlong_runs():

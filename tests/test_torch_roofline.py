@@ -243,7 +243,7 @@ def test_count_step_names_the_kernels_that_launched():
     before = w.launches
 
     def step():
-        runtime.count_launch(w)  # what a launch on the card records
+        runtime.count_launch(w, torch.device("cuda", 0))  # what a launch on the card records
         return torch.zeros(3) + 1
 
     try:
