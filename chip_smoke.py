@@ -124,7 +124,7 @@ script exits non-zero without the last line):
              this scale)
 6. triangles triangle_count_view on the card, cold then warm, ==
              triangle_count_fast on host (in a child process beside phases
-             7-12, joined after them); then, uncounted, the warm call's
+             7-13, joined after them); then, uncounted, the warm call's
              split: host enumeration of the tile pairs, index uploads, the
              kernel's summed device time, the rest
 6m. multiprocess  on phase 6's store: the shard plane over processes
@@ -162,7 +162,10 @@ script exits non-zero without the last line):
              flash_decode's tensor-core route at the decode_32k path, at
              seeded lengths, with softcap 50 and at dh 144 (Gemma-2-27B's
              grouping), and the CUDA-core route (f32 K/V) at seeded
-             lengths
+             lengths; phase 13's heads over 32,768 rows: the CUDA-core
+             route at Gemma-2-27B's f32 heads (G 2, dh 144, with and
+             without softcap 50) and Qwen3-32B's (G 8, dh 80) at seeded
+             lengths, the tensor-core route at their bf16 decode paths
 8. lm_serve  Qwen2.5-14B at full width: (a) ``repro_torch.launch.serve``'s
              ``main`` with its defaults (f32, batch 4, prompt 32 fed token
              by token, 32 decode tokens, max_seq 128), then one step of the
@@ -253,15 +256,36 @@ script exits non-zero without the last line):
              the bytes ``collectives.shard`` copied between cards.  With
              several cards, parts (a)-(c) also time their sharded form
              with every shard on ``cuda:0``
+13. lm_wide  after every other phase, with the card holding under 1 GB:
+             Gemma-2-27B (46 layers, local window 4,096, softcaps 50/30) and
+             Qwen3-32B (64 layers, qk-norm) at full width, weights from the
+             seed in bf16 (55.1 and 59.4 GB, made a block of layers at a
+             time: the making's peak at most the tree plus one f32 block),
+             each freed before the next: (a) Gemma-2 at decode_32k's shape,
+             batch 1 (a bf16 cache of 32,768 rows filled to 32,760): one
+             step through the serve route with each flash_decode launch
+             (the 23 global layers, softcap 50) held against its plain
+             version and the logits against the plain route's within 10%
+             of their largest magnitude (the 23 local layers take
+             ``decode_attention_ref`` on both), then 8 greedy steps timed,
+             23 launches a step, and one under the profiler; (b) its
+             prefill_32k (batch 1, attn_chunk 1,024): seconds, tokens/s,
+             peak, the last position's logits within 0.1 of their largest
+             magnitude of the same last-only step's at attn_chunk 2,048;
+             (c) Qwen3 as (a) at batch 2, 64 launches a step (dh 80, G 8);
+             (d) both through the serve launcher's f32 route (the
+             CUDA-core kernel) at its defaults, cut to 24 and 32 layers:
+             tokens/s, one launch a layer a step, then the same loop from a
+             fresh cache with every launch held against its plain version
 5s, 6m and 12m, with several cards: a ``cards`` line after each path:
              its launches, ``max_memory_allocated`` and the bytes
              ``collectives.shard`` copied, per card; a path with a kernel
              fails unless it launched on every card
-13. the ``total`` line (the script's seconds), the ``kernels`` line, the
+14. the ``total`` line (the script's seconds), the ``kernels`` line, the
     card's name and power limit, then the ``ok`` line.
 
 The launch counters are set to 0 just before each of phases 3-6, 5s, 5a,
-5g, 5b, 6m, 6b, 8-12 and each mesh part, and read just after it (5g, 10, 11 and
+5g, 5b, 6m, 6b, 8-13 and each mesh part, and read just after it (5g, 10, 11 and
 the mesh parts b, c and e launch no hand kernel: segment ops, flash
 attention, MoE and the collectives are torch ops); every kernel a phase
 calls must have launched in it.  The ``kernels`` line's ``launches`` is the count on each
@@ -278,8 +302,10 @@ the host), twice here; its SpMM width is 16 and its intersect pairs
 The GNN phase's cut: the graph is the scale-22 R-MAT store, not
 minibatch_lg's Reddit graph (232,965 x 114.6M); 20 steps, not the
 example's 300.  The LM cuts: prefill_32k's batch 32 -> 1 and train_4k's
-256 -> 2, to fit one card; the launcher runs at ``--smoke`` (a full-width
-checkpoint of f32 weights and bf16 moments is 26.4 GB of disk a save).
+256 -> 2, to fit one card; phase 13's decode_32k batch 128 -> 1 (Gemma-2)
+and 2 (Qwen3), and its f32 route's depth 46 -> 24 and 64 -> 32 layers;
+the training launcher runs at ``--smoke`` (a full-width checkpoint of
+f32 weights and bf16 moments is 26.4 GB of disk a save).
 
 Peaks and model FLOPs come from ``repro_torch.roofline.model`` (the
 H100 SXM data sheet's 3.35 TB/s and 67 TFLOP/s f32).  Phase 6m's cut:
@@ -336,6 +362,13 @@ DECODE_STEPS = 8  # greedy tokens after the cache is filled to DECODE_SEQ - 8
 SERVE_BATCHES = (512, 262144)  # serve_p99, serve_bulk
 N_CANDIDATES = 1_000_000  # retrieval_cand
 GRANITE = "granite-moe-3b-a800m"  # the LM whose training fits one card
+# phase 13: the two LMs that fit one card only in bf16 (55.1 and 59.4 GB of
+# weights); decode_32k's batch 128 cut to what fits beside the weights, the
+# serve launcher's f32 route at the depth whose weights fit (about 60 and
+# 64 GB; all 46 and 64 layers would take 110 and 119 GB)
+WIDE_ARCHS = ("gemma2-27b", "qwen3-32b")
+WIDE_DECODE_BATCH = {"gemma2-27b": 1, "qwen3-32b": 2}
+WIDE_F32_LAYERS = {"gemma2-27b": 24, "qwen3-32b": 32}
 SERVE_BATCH, SERVE_PROMPT, SERVE_DECODE, SERVE_MAX_SEQ = 4, 32, 32, 128  # launch/serve.py's
 PREFILL_SEQ, PREFILL_BATCH = 32768, 1  # LM_SHAPES' prefill_32k; its batch 32 cut to 1
 PREFILL_CHUNK, PREFILL_CHECK_CHUNK = 1024, 2048  # attn_chunk; the chunk-invariance check's
@@ -2692,12 +2725,6 @@ def model_configs():
     return get(LM_ARCH), get("bst")
 
 
-def granite_config():
-    from repro_torch.configs import registry
-
-    return (registry.get_smoke_config if MODEL_SMOKE else registry.get_config)(GRANITE)
-
-
 def recsys_train_ids(cfg, i: int, seed: int):
     """Batch ``i`` of ``RecsysBatches`` at ``BST_TRAIN_BATCH``: history and
     target ids as the forward looks them up, [B * (seq_len + 1)] int32."""
@@ -2821,7 +2848,7 @@ def phase_model_kernels(seed: int, device) -> dict:
     del q2, k2, v2
     # granite's serve path (lm_serve c): f32 K/V, dh 64, 3 query heads a KV
     # head, the launcher's cache of 128 rows at the last step's length
-    gr = granite_config()
+    gr = lm_config(GRANITE)
     gk = torch.randn((SERVE_BATCH, SERVE_MAX_SEQ, gr.n_kv_heads, gr.d_head), generator=g,
                      device=device)
     gv = torch.randn(gk.shape, generator=g, device=device)
@@ -2831,6 +2858,34 @@ def phase_model_kernels(seed: int, device) -> dict:
                       device=device)
     cases["granite_serve"] = decode_case(gq, gk, gv, glen)
     del gq, gk, gv
+    # phase 13's heads at full width over DECODE_SEQ rows: the serve
+    # launcher's f32 route ("simt": rows of 36 and 20 words) at seeded
+    # lengths, and the bf16 decode path ("mma") with every row live to its
+    # last step; Gemma-2-27B's G 2, dh 144 with and without its softcap 50
+    # (the library call has none), Qwen3-32B's G 8, dh 80
+    from repro_torch.configs import registry
+
+    for name, arch, b_, dtype, caps in (
+            ("f32_dh144", "gemma2-27b", 2, torch.float32, (None, 50.0)),
+            ("f32_dh80", "qwen3-32b", 2, torch.float32, (None,)),
+            ("gemma2_decode", "gemma2-27b", WIDE_DECODE_BATCH["gemma2-27b"], torch.bfloat16,
+             (50.0, None)),
+            ("qwen3_decode", "qwen3-32b", WIDE_DECODE_BATCH["qwen3-32b"], torch.bfloat16,
+             (None,))):
+        wc = registry.get_config(arch)
+        shape = (b_, s, wc.n_kv_heads, wc.d_head)
+        wq = torch.randn((b_, wc.n_kv_heads, wc.n_heads // wc.n_kv_heads, wc.d_head),
+                         generator=g, device=device)
+        wk = torch.randn(shape, generator=g, device=device, dtype=dtype)
+        wv = torch.randn(shape, generator=g, device=device, dtype=dtype)
+        if dtype == torch.float32:
+            wlen = torch.from_numpy(rng.integers(1, s + 1, b_).astype(np.int32)).to(device)
+        else:
+            wlen = torch.full((b_,), s - DECODE_STEPS + 1, dtype=torch.int32, device=device)
+        for cap in caps:
+            cases[name + ("_softcap" if cap else "")] = decode_case(wq, wk, wv, wlen, softcap=cap)
+        del wq, wk, wv
+        free_device(device)
     p_ = cases["path"]
     out["flash_decode"] = dict(
         name="flash_decode", max_abs_err=max(c["max_abs_err"] for c in cases.values()),
@@ -2951,7 +3006,7 @@ def phase_lm_serve(seed: int, device) -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.kernels.flash_decode import flash_decode, route
+    from repro_torch.kernels.flash_decode import route
     from repro_torch.kernels.flash_decode.ref import flash_decode_ref
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.models import transformer as T
@@ -3040,13 +3095,8 @@ def phase_lm_serve(seed: int, device) -> dict:
     if not noise_err <= limit < fault_err:
         raise AssertionError(f"decode_32k: the logits limit {limit} does not separate "
                              f"one-ulp noise ({noise_err}) from a planted fault ({fault_err})")
-    step_s, per_step = [], []
-    for i in range(DECODE_STEPS):
-        n0 = flash_decode.launches
-        (lk, tk, _), sec = wall(lambda: step_k(params, cache, tok, first + i), device)
-        step_s.append(sec)
-        per_step.append(flash_decode.launches - n0)
-        tok = tk[:, None]
+    step_s, per_step, _, tok = decode_steps(step_k, params, cache, tok, first, DECODE_STEPS,
+                                            device)
     if "flash_decode" in PATH_KERNELS["lm_serve"] and any(n != lm.n_layers for n in per_step):
         raise AssertionError(f"decode_32k: flash_decode launches per step {per_step}, "
                              f"want {lm.n_layers}")
@@ -3067,8 +3117,7 @@ def phase_lm_serve(seed: int, device) -> dict:
         profiled_step_ms=prof_ms, device_busy_ms=busy_ms, median_step_ms=median_ms,
         idle_share_profiled=None if busy_ms is None else 1.0 - busy_ms / prof_ms,
         idle_share_median=None if busy_ms is None else 1.0 - busy_ms / median_ms,
-        param_bytes=sum(t.numel() * t.element_size() for t in
-                        [params["embed"], params["final_norm"], *params["layers"].values()]),
+        param_bytes=tree_bytes(params),
         cache_bytes=2 * cache["k"].numel() * cache["k"].element_size(),
         peak_allocated_bytes=(torch.cuda.max_memory_allocated(device)
                               if device.type == "cuda" else None))
@@ -3117,10 +3166,7 @@ def serve_granite(seed: int, device, plain_attn) -> dict:
                   checked_launches=len(errs), launch_max_abs_err=max(errs),
                   max_abs_err=err, tokens_equal=bool(torch.equal(tc, tp)),
                   prefill_s=pre_s, prefill_max_abs_err=pre_err,
-                  logit_absmax=float(lp.abs().max()),
-                  param_bytes=sum(t.numel() * t.element_size() for t in
-                                  [params["embed"], params["final_norm"],
-                                   *params["layers"].values()]))
+                  logit_absmax=float(lp.abs().max()), param_bytes=tree_bytes(params))
     emit("lm_serve_granite", **report)
     del res, params, cache
     free_device(device)
@@ -3204,7 +3250,7 @@ def phase_lm_prefill(seed: int, device) -> dict:
     from repro_torch.models import transformer as T
     from repro_torch.serve.decode import make_prefill_step
 
-    cfg = granite_config()
+    cfg = lm_config(GRANITE)
     free_device(device)
     reset_peak(device)
     gen = torch.Generator(device=device).manual_seed(seed + 50)
@@ -3281,7 +3327,7 @@ def phase_lm_train(seed: int, device) -> dict:
     from repro_torch.roofline.model import lm_model_flops
     from repro_torch.train.step import make_lm_train_step
 
-    cfg = granite_config()
+    cfg = lm_config(GRANITE)
     cpu = torch.device("cpu")
     # the float64 check's CPU route runs on a host thread beside the steps
     small = dataclasses.replace(cfg, n_layers=TRAIN_CHECK_LAYERS)
@@ -3666,7 +3712,7 @@ def phase_mesh_granite(seed: int, device) -> dict:
     from repro_torch.serve.decode import (flash_attn_fn, make_decode_step, make_sp_attn_fn,
                                           place_sp_cache)
 
-    cfg = granite_config()
+    cfg = lm_config(GRANITE)
     mesh = make_mesh((2, 2), ("data", "model"), device=device)
     sp_attn = make_sp_attn_fn(mesh, ("model",), "data")
     ws_moe = TM.make_weight_stationary_moe_ffn(cfg, mesh, "data", "model")
@@ -4072,9 +4118,277 @@ def phase_mesh_elastic(seed: int, device) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the two LMs that fit one card only in bf16, at full width
+# ---------------------------------------------------------------------------
+def lm_config(arch: str):
+    from repro_torch.configs import registry
+
+    return (registry.get_smoke_config if MODEL_SMOKE else registry.get_config)(arch)
+
+
+def tree_bytes(params) -> int:
+    from repro_torch.optim.tree import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(params))
+
+
+def n_global(cfg, cache_len: int) -> int:
+    """Layers whose window covers a cache of ``cache_len`` rows: the ones the
+    serve route sends to ``flash_decode``."""
+    from repro_torch.models import transformer as T
+
+    return sum(T.layer_window(cfg, loc, cache_len) >= cache_len for loc in T.layer_is_local(cfg))
+
+
+def decode_steps(step, params, cache, tok, first: int, n: int, device) -> tuple:
+    """``n`` greedy steps from position ``first``, each timed with the
+    device drained: (seconds a step, flash_decode launches a step, the
+    last logits, the next token [B, 1])."""
+    from repro_torch.kernels.flash_decode import flash_decode
+
+    step_s, per_step = [], []
+    for i in range(n):
+        n0 = flash_decode.launches
+        (logits, nxt, _), sec = wall(lambda: step(params, cache, tok, first + i), device)
+        step_s.append(sec)
+        per_step.append(flash_decode.launches - n0)
+        tok = nxt[:, None]
+    return step_s, per_step, logits, tok
+
+
+def wide_params(cfg, seed: int, device) -> tuple:
+    """bf16 weights of ``cfg`` from the seed, made block by block of the
+    leading axis (``models.common.DRAW_BLOCK``): (params, a report with the
+    making's seconds and peak, which must stay within the tree, as the
+    allocator holds it, plus its largest f32 block)."""
+    import torch
+
+    from repro_torch.models import common as C
+    from repro_torch.models import transformer as T
+
+    reset_peak(device)
+    held = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params, sec = wall(lambda: T.init_params(cfg, gen, dtype=torch.bfloat16, device=device),
+                       device)
+    nbytes = tree_bytes(params)
+    shapes = T.lm_shapes(cfg)
+    shapes = [sh for k, sh in shapes.items() if k != "layers"] + list(shapes["layers"].values())
+
+    def block_bytes(shape):  # the f32 transient of one draw of a 2-D or wider leaf
+        row = math.prod(shape[1:])
+        return 4 * row * min(shape[0], max(1, C.DRAW_BLOCK // row))
+
+    block = max(block_bytes(sh) for sh in shapes if len(sh) >= 2)
+    report = dict(seconds=sec, param_bytes=nbytes, f32_block_bytes=block)
+    if device.type == "cuda":
+        # the tree as the allocator holds it (its blocks' rounding included)
+        tree = torch.cuda.memory_allocated(device) - held
+        report.update(tree_allocated_bytes=tree, init_peak_bytes=peak_bytes(device) - held)
+        if report["init_peak_bytes"] > tree + block:
+            raise AssertionError(f"{cfg.name}: making the bf16 weights peaked at "
+                                 f"{report['init_peak_bytes']} bytes, above the tree ({tree}) "
+                                 f"plus one f32 block ({block})")
+    return params, report
+
+
+def wide_decode(cfg, params, batch: int, seed: int, device) -> dict:
+    """decode_32k's shape in bf16 at ``batch``: the cache filled from the
+    seed to DECODE_SEQ - DECODE_STEPS, one step through both routes (every
+    ``flash_decode`` launch held against its plain version, the local
+    layers through ``decode_attention_ref`` on both; logits finite and
+    within 0.1 of their largest magnitude), then DECODE_STEPS greedy steps
+    through ``serve_attn_fn`` timed, one launch a global layer a step, and
+    one more under the profiler."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.flash_decode import route
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.decode import (make_decode_step, make_flash_attn_fn,
+                                          make_serve_attn_fn, serve_attn_fn)
+
+    reset_peak(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cache = T.init_cache(cfg, batch, DECODE_SEQ, dtype=torch.bfloat16, device=device)
+    first = DECODE_SEQ - DECODE_STEPS
+    (_, setup_s) = wall(lambda: [cache[n][i, :, :first].normal_(generator=gen)
+                                 for n in ("k", "v") for i in range(cfg.n_layers)], device)
+    plain_flash = make_flash_attn_fn(flash_decode_ref)
+    errs = []
+    tok = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (batch, 1), dtype=np.int32)).to(device)
+    lp, tp, _ = make_decode_step(cfg, torch.bfloat16, attn_fn=make_serve_attn_fn(plain_flash))(
+        params, cache, tok, first)
+    lc, tc, _ = make_decode_step(cfg, torch.bfloat16, attn_fn=make_serve_attn_fn(
+        checked_attn_fn(plain_flash, errs)))(params, cache, tok, first)
+    limit = 0.1 * float(lp.abs().max())
+    err = check_logits(lc, lp, 0.0, limit, f"{cfg.name} decode bf16")
+    globals_ = n_global(cfg, DECODE_SEQ)
+    if len(errs) != globals_:
+        raise AssertionError(f"{cfg.name} decode: {len(errs)} checked launches, want {globals_}")
+    step = make_decode_step(cfg, torch.bfloat16, attn_fn=serve_attn_fn)
+    step_s, per_step, logits, tok = decode_steps(step, params, cache, tok, first, DECODE_STEPS,
+                                                 device)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{cfg.name} decode: non-finite logits")
+    if "flash_decode" in PATH_KERNELS["lm_wide"] and any(n != globals_ for n in per_step):
+        raise AssertionError(f"{cfg.name} decode: flash_decode launches per step {per_step}, "
+                             f"want {globals_}")
+    busy_ms, prof_ms = profiled_step(lambda: step(params, cache, tok, DECODE_SEQ - 1), device)
+    median_ms = float(np.median(step_s)) * 1e3
+    report = dict(
+        config=cfg.name, batch=batch, reduced=[f"decode_32k batch 128 -> {batch}"],
+        cache_len=DECODE_SEQ, first_pos=first, steps=DECODE_STEPS, setup_s=setup_s, step_s=step_s, median_step_ms=median_ms,
+        tok_per_s=batch * DECODE_STEPS / sum(step_s), launches_per_step=per_step,
+        global_layers=globals_, route=route(torch.bfloat16, cfg.d_head),
+        checked_launches=len(errs), launch_max_abs_err=max(errs), max_abs_err=err,
+        logits_limit=limit, logit_absmax=float(lp.abs().max()),
+        tokens_equal=bool(torch.equal(tc, tp)), profiled_step_ms=prof_ms,
+        device_busy_ms=busy_ms,
+        idle_share_median=None if busy_ms is None else 1.0 - busy_ms / median_ms,
+        cache_bytes=2 * cache["k"].numel() * cache["k"].element_size(),
+        peak_allocated_bytes=peak_bytes(device))
+    emit("lm_wide_decode", **report)
+    del cache
+    free_device(device)
+    return report
+
+
+def wide_prefill(cfg, params, seed: int, device) -> dict:
+    """prefill_32k in bf16 at batch PREFILL_BATCH, attn_chunk PREFILL_CHUNK:
+    seconds, tokens/s, peak; the last position's logits finite and within
+    0.1 of their largest magnitude of the same step's with attn_chunk
+    PREFILL_CHECK_CHUNK on the same tokens (the last-only step on both
+    sides: full logits would not fit)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve.decode import make_prefill_step
+
+    reset_peak(device)
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (PREFILL_BATCH, PREFILL_SEQ), dtype=np.int32)).to(device)
+    step = make_prefill_step(cfg, torch.bfloat16, attn_chunk=PREFILL_CHUNK)
+    last, sec = wall(lambda: step(params, toks), device)
+    peak = peak_bytes(device)
+    want, check_s = wall(lambda: make_prefill_step(
+        cfg, torch.bfloat16, attn_chunk=PREFILL_CHECK_CHUNK)(params, toks), device)
+    if not (bool(torch.isfinite(last).all()) and bool(torch.isfinite(want).all())):
+        raise AssertionError(f"{cfg.name} prefill: non-finite logits")
+    limit = 0.1 * float(want.float().abs().max())
+    err = check_logits(last.float(), want.float(), 0.0, limit,
+                       f"{cfg.name} prefill chunk {PREFILL_CHUNK} vs {PREFILL_CHECK_CHUNK}")
+    report = dict(config=cfg.name, batch=PREFILL_BATCH, seq=PREFILL_SEQ,
+                  reduced=[f"prefill_32k batch 32 -> {PREFILL_BATCH}"],
+                  attn_chunk=PREFILL_CHUNK, seconds=sec,
+                  tokens_per_s=PREFILL_BATCH * PREFILL_SEQ / sec, peak_allocated_bytes=peak,
+                  check_chunk=PREFILL_CHECK_CHUNK, check_s=check_s,
+                  max_abs_err=err, logits_limit=limit)
+    emit("lm_wide_prefill", **report)
+    return report
+
+
+def wide_serve_f32(arch: str, seed: int, device) -> dict:
+    """The serve launcher's f32 route (``make_decode_step(cfg, f32,
+    serve_attn_fn)``) at its defaults (batch 4, 32 prompt tokens fed one by
+    one, 32 decode tokens, max_seq 128), at full width and
+    WIDE_F32_LAYERS[arch] layers: the loop timed as the launcher times it,
+    one launch a layer a step (the window covers the 128-row cache); then
+    the same loop from a fresh cache with every launch held against its
+    plain version, and its logits against the timed loop's (3e-4)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.flash_decode import flash_decode, route
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.decode import (make_decode_step, make_flash_attn_fn,
+                                          make_serve_attn_fn, serve_attn_fn)
+
+    full = lm_config(arch)
+    cfg = dataclasses.replace(full, n_layers=min(WIDE_F32_LAYERS[arch], full.n_layers))
+    reset_peak(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = T.init_params(cfg, gen, dtype=torch.float32, device=device)
+    prompt = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT), dtype=np.int32)).to(device)
+
+    def serve(attn_fn):
+        step = make_decode_step(cfg, torch.float32, attn_fn=attn_fn)
+        cache = T.init_cache(cfg, SERVE_BATCH, SERVE_MAX_SEQ, dtype=torch.float32, device=device)
+        for t in range(SERVE_PROMPT):
+            _, nxt, cache = step(params, cache, prompt[:, t:t + 1], t)
+        step_s, _, logits, tok = decode_steps(step, params, cache, nxt[:, None], SERVE_PROMPT,
+                                              SERVE_DECODE, device)
+        return logits, sum(step_s)
+
+    n0 = flash_decode.launches
+    logits, sec = serve(serve_attn_fn)
+    launches = flash_decode.launches - n0
+    want = (SERVE_PROMPT + SERVE_DECODE) * n_global(cfg, SERVE_MAX_SEQ)
+    if "flash_decode" in PATH_KERNELS["lm_wide"] and launches != want:
+        raise AssertionError(f"{arch} f32 serve: {launches} flash_decode launches, want {want}")
+    errs = []
+    checked, _ = serve(make_serve_attn_fn(checked_attn_fn(make_flash_attn_fn(flash_decode_ref),
+                                                          errs)))
+    if len(errs) != want:
+        raise AssertionError(f"{arch} f32 serve: {len(errs)} checked launches, want {want}")
+    err = check_logits(logits, checked, 3e-4, 3e-4, f"{arch} f32 serve, checked run")
+    report = dict(config=cfg.name, layers=cfg.n_layers, full_layers=full.n_layers,
+                  reduced=[f"layers {full.n_layers} -> {cfg.n_layers}"], batch=SERVE_BATCH, prompt=SERVE_PROMPT, decode_tokens=SERVE_DECODE,
+                  max_seq=SERVE_MAX_SEQ, route=route(torch.float32, cfg.d_head),
+                  decode_s=sec, tok_per_s=SERVE_BATCH * SERVE_DECODE / sec,
+                  launches=launches, checked_launches=len(errs),
+                  launch_max_abs_err=max(errs), max_abs_err=err,
+                  param_bytes=tree_bytes(params), peak_allocated_bytes=peak_bytes(device))
+    emit("lm_wide_f32", **report)
+    del params
+    free_device(device)
+    return report
+
+
+def phase_lm_wide(seed: int, device) -> dict:
+    """Phase 13: Gemma-2-27B and Qwen3-32B at full width on one card, after
+    every other phase (the card must hold under 1 GB at its start): (a)
+    Gemma-2's 46 layers in bf16 at decode_32k's shape (batch 1); (b) its
+    prefill_32k on the same weights; (c) Qwen3's 64 layers in bf16 at
+    decode_32k's shape (batch 2); (d) both through the serve launcher's f32
+    route at cut depth.  Each model's weights are freed before the next
+    are made."""
+    import torch
+
+    free_device(device)
+    held = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
+    if held >= 1 << 30:
+        raise AssertionError(f"lm_wide: the card holds {held} bytes at the start")
+    report = {}
+    for i, arch in enumerate(WIDE_ARCHS):
+        cfg = lm_config(arch)
+        params, made = wide_params(cfg, seed + 60 + i, device)
+        emit("lm_wide_params", config=cfg.name, **made)
+        report[arch] = dict(params=made, decode=wide_decode(
+            cfg, params, WIDE_DECODE_BATCH[arch], seed + 62 + i, device))
+        if arch == "gemma2-27b":
+            report[arch]["prefill"] = wide_prefill(cfg, params, seed + 64, device)
+        del params
+        free_device(device)
+    for i, arch in enumerate(WIDE_ARCHS):
+        report[arch]["f32"] = wide_serve_f32(arch, seed + 66 + i, device)
+    if device.type == "cuda":  # each part reset the peak: the phase's is theirs
+        report["peak_allocated_bytes"] = max(
+            part.get("peak_allocated_bytes") or part.get("init_peak_bytes") or 0
+            for model in report.values() for part in model.values())
+    return report
+
+
 def run_models(seed: int, device, launches: dict) -> dict:
-    """Phases 7-13 and the mesh phase's parts (a), (b), (d), (e); returns
-    the model kernels' records."""
+    """Phases 7-13 and the mesh phase's parts (a), (b), (d), (e), phase 13
+    last; returns the model kernels' records."""
     import torch
 
     free_device(device)
@@ -4088,9 +4402,10 @@ def run_models(seed: int, device, launches: dict) -> dict:
     for path, phase in (("lm_prefill", phase_lm_prefill), ("lm_train", phase_lm_train),
                         ("recsys_train", phase_recsys_train), ("mesh_bst", phase_mesh_bst),
                         ("mesh_granite", phase_mesh_granite), ("mesh_reduce", phase_mesh_reduce),
-                        ("mesh_elastic", phase_mesh_elastic)):
-        counted(path, launches, phase, seed, device)
-        peaks.append(peak_bytes(device))
+                        ("mesh_elastic", phase_mesh_elastic), ("lm_wide", phase_lm_wide)):
+        report = counted(path, launches, phase, seed, device)
+        # a phase of several parts resets the peak per part and reports its own
+        peaks.append(max(peak_bytes(device) or 0, report.get("peak_allocated_bytes") or 0))
     if device.type == "cuda":
         emit("memory", phases="7-13", peak_allocated_bytes=max(peaks))
     return kernels
@@ -4124,6 +4439,8 @@ PATH_KERNELS = {
     "mesh_gnn": (),
     "mesh_reduce": ("embedding_bag",),
     "mesh_elastic": (),
+    # Gemma-2-27B and Qwen3-32B: the global layers' decode attention
+    "lm_wide": ("flash_decode",),
 }
 
 
@@ -4191,7 +4508,7 @@ def counted(path: str, launches: dict, fn, *args):
 
 
 def run(seed: int, device) -> dict:
-    """Phases 1-12 on ``device``; returns the per-kernel records."""
+    """Phases 1-13 on ``device``; returns the per-kernel records."""
     import torch
 
     if device.type == "cuda":

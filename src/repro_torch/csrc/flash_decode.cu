@@ -62,20 +62,27 @@
 // faster at decode_32k.  dh / 16 is a template argument so that q's terms
 // and acc stay in registers.
 //
-// Route "simt" (f32 K/V, or bf16 rows of other widths: 16 bytes times a
-// power of two): CUDA cores.  Inside a block no step waits for another
-// warp: each warp walks its own rows straight from device memory,
-// L = dh * sizeof(T) / 16 lanes per row with one 16-byte load each (a
-// 256-byte bf16 row is one coalesced load of 16 lanes, so a warp reads
-// 32 / L rows at once), kU rows per lane issued together for K and for V.
-// Each lane keeps the G query heads' slices of q for its 16 bytes in
-// registers; a row's G dot products are summed over its L lanes with xor
-// shuffles; the running max, the rescale and the f32 accumulators stay in
-// registers, with one max per kU * 32 / L rows and a rescale only when that
-// max moves; exponentials use the fast exp2-based __expf (a few ulp; the
-// sums stay f32).  K and V are f32 or bf16; everything accumulates in f32.
-// G is a template argument (at most 8), so that q and the accumulators stay
-// in registers.
+// Route "simt" (f32 K/V, or bf16 rows of other widths: any row of L words
+// of 16 bytes, 1 <= L <= 64, dh <= 256): CUDA cores.  Inside a block no
+// step waits for another warp: each warp walks its own rows straight from
+// device memory in groups of P lanes a row, P the power of two at or above
+// L up to a warp (a 256-byte bf16 row is one coalesced load of 16 lanes, so
+// a warp reads 32 / P rows at once).  Lane i of a group holds the row's
+// 16-byte words i, i + P, ...: W = ceil(L / 32) words, one where L <= 32,
+// two for f32 rows above 128 floats.  Words past L (lanes L..P-1 of a group,
+// and the tail of the second word) load nothing, hold zero q and add 0 to
+// the sums: they cost instruction slots, not bytes.  Each lane keeps the G
+// query heads' slices of q for its words in registers; a row's G dot products
+// are summed over its P lanes with xor shuffles; the running max, the
+// rescale and the f32 accumulators stay in registers, with one max per
+// kU / W * 32 / P rows and a rescale only when that max moves;
+// exponentials use the fast exp2-based __expf (a few ulp; the sums stay
+// f32).  K and V are f32 or bf16; everything accumulates in f32.  G and W
+// are template arguments (G at most 8), so that q and the accumulators
+// stay in registers; with W = 2 each lane keeps kU / 2 rows in flight, so
+// that the loads in flight per lane stay 2 kU words.  The warps' states
+// take 4 kWarps G (dh + 2) bytes of shared memory: 33,024 at G = 8 and
+// dh = 256, under the 48 KB a block gets without asking.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -117,15 +124,17 @@ struct Chunk<__nv_bfloat16> {
 
 // Grid (n_chunks, KV, B).  q [B, KV, G, dh] f32; k, v [B, S, KV, dh] T;
 // partials pacc [B, KV, n_chunks, G, dh], pm / pl [B, KV, n_chunks, G] f32;
-// chunk is a multiple of kWarps * kU * 32 / L rows.
-template <typename T, int G>
+// a row is L words of 16 bytes read by P lanes, W words a lane; chunk is a
+// multiple of kWarps * (kU / W) * 32 / P rows.
+template <typename T, int G, int W>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const int* __restrict__ kv_len,
                           float* __restrict__ pacc, float* __restrict__ pm,
-                          float* __restrict__ pl, int S, int KV, int dh, int L, int chunk,
+                          float* __restrict__ pl, int S, int KV, int dh, int L, int P, int chunk,
                           float scale, float softcap) {
   constexpr int VE = Chunk<T>::kElems;
+  constexpr int U = kU / W;  // rows in flight per lane
   extern __shared__ __align__(16) float smem[];  // m, l [kWarps][G]; acc [kWarps][G][dh]
   float* sm_m = smem;
   float* sm_l = sm_m + kWarps * G;
@@ -133,94 +142,118 @@ flash_decode_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
 
   const int sp = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int R = 32 / L, sub = lane % L, rg = lane / L;
+  const int R = 32 / P, sub = lane % P, rg = lane / P;
   const int len = min(max(kv_len[b], 0), S);
   const int p_begin = sp * chunk, p_end = min(len, p_begin + chunk);
   if (p_begin >= p_end) return;  // past kv_len: the merge skips this partial
   const long long seq_stride = (long long)KV * dh;
   const long long bh = (long long)b * KV + h;
-  const T* kb = k + ((long long)b * S * KV + h) * dh + sub * VE;
-  const T* vb = v + ((long long)b * S * KV + h) * dh + sub * VE;
+  const T* kb = k + ((long long)b * S * KV + h) * dh;
+  const T* vb = v + ((long long)b * S * KV + h) * dh;
+  int word[W];   // this lane's 16-byte words of a row
+  bool live[W];  // word < L: the others load nothing and stay zero
+#pragma unroll
+  for (int j = 0; j < W; ++j) {
+    word[j] = j * P + sub;
+    live[j] = word[j] < L;
+  }
 
-  float qr[G][VE];
+  float qr[G][W][VE];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    const float4* qg = reinterpret_cast<const float4*>(q + (bh * G + g) * dh + sub * VE);
 #pragma unroll
-    for (int e = 0; e < VE / 4; ++e) {
-      const float4 x = __ldg(qg + e);
-      qr[g][4 * e] = x.x;
-      qr[g][4 * e + 1] = x.y;
-      qr[g][4 * e + 2] = x.z;
-      qr[g][4 * e + 3] = x.w;
+    for (int j = 0; j < W; ++j) {
+      const float4* qg = reinterpret_cast<const float4*>(q + (bh * G + g) * dh + word[j] * VE);
+#pragma unroll
+      for (int e = 0; e < VE / 4; ++e) {
+        const float4 x = live[j] ? __ldg(qg + e) : make_float4(0.f, 0.f, 0.f, 0.f);
+        qr[g][j][4 * e] = x.x;
+        qr[g][j][4 * e + 1] = x.y;
+        qr[g][j][4 * e + 2] = x.z;
+        qr[g][j][4 * e + 3] = x.w;
+      }
     }
   }
-  float m[G], l[G], acc[G][VE];
+  float m[G], l[G], acc[G][W][VE];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     m[g] = kNegInf;
     l[g] = 0.f;
 #pragma unroll
-    for (int e = 0; e < VE; ++e) acc[g][e] = 0.f;
+    for (int j = 0; j < W; ++j)
+#pragma unroll
+      for (int e = 0; e < VE; ++e) acc[g][j][e] = 0.f;
   }
 
-  for (int r0 = p_begin + warp * kU * R; r0 < p_end; r0 += kWarps * kU * R) {
-    uint4 kc[kU], vc[kU];
-    bool ok[kU];
+  for (int r0 = p_begin + warp * U * R; r0 < p_end; r0 += kWarps * U * R) {
+    uint4 kc[U][W], vc[U][W];
+    bool ok[U];
 #pragma unroll
-    for (int u = 0; u < kU; ++u) {
+    for (int u = 0; u < U; ++u) {
       const int row = r0 + u * R + rg;
       ok[u] = row < p_end;
-      kc[u] = vc[u] = make_uint4(0u, 0u, 0u, 0u);
-      if (ok[u]) {
-        kc[u] = __ldg(reinterpret_cast<const uint4*>(kb + row * seq_stride));
-        vc[u] = __ldg(reinterpret_cast<const uint4*>(vb + row * seq_stride));
+#pragma unroll
+      for (int j = 0; j < W; ++j) {
+        kc[u][j] = vc[u][j] = make_uint4(0u, 0u, 0u, 0u);
+        if (ok[u] && live[j]) {
+          const long long off = row * seq_stride + word[j] * VE;
+          kc[u][j] = __ldg(reinterpret_cast<const uint4*>(kb + off));
+          vc[u][j] = __ldg(reinterpret_cast<const uint4*>(vb + off));
+        }
       }
     }
-    float s[kU][G];
+    float s[U][G];
 #pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      float kf[VE];
-      Chunk<T>::load(kc[u], kf);
+    for (int u = 0; u < U; ++u) {
+      float kf[W][VE];
+#pragma unroll
+      for (int j = 0; j < W; ++j) Chunk<T>::load(kc[u][j], kf[j]);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float d = 0.f;
 #pragma unroll
-        for (int e = 0; e < VE; ++e) d = fmaf(qr[g][e], kf[e], d);
-        for (int o = L >> 1; o; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
+        for (int j = 0; j < W; ++j)
+#pragma unroll
+          for (int e = 0; e < VE; ++e) d = fmaf(qr[g][j][e], kf[j][e], d);
+        for (int o = P >> 1; o; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
         d *= scale;
         if (softcap > 0.f) d = softcap * tanhf(d / softcap);
         s[u][g] = ok[u] ? d : kNegInf;
       }
     }
-    float p[kU][G];
+    float p[U][G];
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       float mx = s[0][g];
 #pragma unroll
-      for (int u = 1; u < kU; ++u) mx = fmaxf(mx, s[u][g]);
-      for (int o = L; o < 32; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      for (int u = 1; u < U; ++u) mx = fmaxf(mx, s[u][g]);
+      for (int o = P; o < 32; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
       if (mx > m[g]) {  // warp-uniform: rescale only when the max moves
         const float alpha = __expf(m[g] - mx);
         m[g] = mx;
         l[g] *= alpha;
 #pragma unroll
-        for (int e = 0; e < VE; ++e) acc[g][e] *= alpha;
+        for (int j = 0; j < W; ++j)
+#pragma unroll
+          for (int e = 0; e < VE; ++e) acc[g][j][e] *= alpha;
       }
 #pragma unroll
-      for (int u = 0; u < kU; ++u) {
+      for (int u = 0; u < U; ++u) {
         p[u][g] = ok[u] ? __expf(s[u][g] - m[g]) : 0.f;
         l[g] += p[u][g];
       }
     }
 #pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      float vf[VE];
-      Chunk<T>::load(vc[u], vf);
+    for (int u = 0; u < U; ++u) {
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
+      for (int j = 0; j < W; ++j) {
+        float vf[VE];
+        Chunk<T>::load(vc[u][j], vf);
 #pragma unroll
-        for (int e = 0; e < VE; ++e) acc[g][e] = fmaf(p[u][g], vf[e], acc[g][e]);
+        for (int g = 0; g < G; ++g) {
+#pragma unroll
+          for (int e = 0; e < VE; ++e) acc[g][j][e] = fmaf(p[u][g], vf[e], acc[g][j][e]);
+        }
       }
     }
   }
@@ -228,17 +261,24 @@ flash_decode_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
   // the warp's row groups share m; sum their l and acc
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    for (int o = L; o < 32; o <<= 1) {
+    for (int o = P; o < 32; o <<= 1) {
       l[g] += __shfl_xor_sync(0xffffffffu, l[g], o);
 #pragma unroll
-      for (int e = 0; e < VE; ++e) acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
+      for (int j = 0; j < W; ++j)
+#pragma unroll
+        for (int e = 0; e < VE; ++e)
+          acc[g][j][e] += __shfl_xor_sync(0xffffffffu, acc[g][j][e], o);
     }
   }
   if (rg == 0) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
 #pragma unroll
-      for (int e = 0; e < VE; ++e) sm_acc[(warp * G + g) * dh + sub * VE + e] = acc[g][e];
+      for (int j = 0; j < W; ++j)
+        if (live[j])
+#pragma unroll
+          for (int e = 0; e < VE; ++e)
+            sm_acc[(warp * G + g) * dh + word[j] * VE + e] = acc[g][j][e];
       if (sub == 0) {
         sm_m[warp * G + g] = m[g];
         sm_l[warp * G + g] = l[g];
@@ -347,38 +387,57 @@ flash_decode_merge_kernel(const float* __restrict__ pacc, const float* __restric
   }
 }
 
-template <typename T, int G>
+template <typename T, int G, int W>
 int launch_g(const float* q, const T* k, const T* v, const int* kv_len, float* pacc, float* pm,
-             float* pl, int B, int S, int KV, int dh, int L, int chunk, int n_chunks,
+             float* pl, int B, int S, int KV, int dh, int L, int P, int chunk, int n_chunks,
              float softcap, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * kWarps * G * (dh + 2);
+  const size_t smem = sizeof(float) * kWarps * G * (dh + 2);  // at most 33,024 bytes
   const float scale = 1.0f / sqrtf((float)dh);
-  flash_decode_split_kernel<T, G><<<dim3(n_chunks, KV, B), kThreads, smem, stream>>>(
-      q, k, v, kv_len, pacc, pm, pl, S, KV, dh, L, chunk, scale, softcap);
+  flash_decode_split_kernel<T, G, W><<<dim3(n_chunks, KV, B), kThreads, smem, stream>>>(
+      q, k, v, kv_len, pacc, pm, pl, S, KV, dh, L, P, chunk, scale, softcap);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int W>
+int launch_w(const float* q, const T* k, const T* v, const int* kv_len, float* pacc, float* pm,
+             float* pl, int B, int S, int KV, int G, int dh, int L, int P, int chunk,
+             int n_chunks, float softcap, cudaStream_t stream) {
+  switch (G) {
+#define FD_CASE(n)                                                                             \
+  case n:                                                                                      \
+    return launch_g<T, n, W>(q, k, v, kv_len, pacc, pm, pl, B, S, KV, dh, L, P, chunk, n_chunks, \
+                             softcap, stream);
+    FD_CASE(1) FD_CASE(2) FD_CASE(3) FD_CASE(4) FD_CASE(5) FD_CASE(6) FD_CASE(7) FD_CASE(8)
+#undef FD_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
 int launch(const float* q, const T* k, const T* v, const int* kv_len, float* pacc, float* pm,
            float* pl, float* out, float* out_m, float* out_l, int B, int S, int KV, int G, int dh,
            int chunk, float softcap, int normalize, cudaStream_t stream) {
-  // L lanes of 16 bytes per row: a power of two up to a warp
+  // L words of 16 bytes a row (dh <= 256: L <= 64), read by groups of P
+  // lanes (the power of two at or above L, at most a warp), W words a lane
   const int row_bytes = dh * (int)sizeof(T);
   const int L = row_bytes / 16;
+  int P = 1;
+  while (P < L && P < 32) P <<= 1;
+  const int W = (L + 31) / 32;
   const int n_chunks = (S + chunk - 1) / chunk;
-  if (row_bytes % 16 || L < 1 || L > 32 || (L & (L - 1)) || chunk % (kWarps * kU * (32 / L)) ||
+  if (row_bytes % 16 || L < 1 || dh > 256 || chunk % (kWarps * (kU / W) * (32 / P)) ||
       ((uintptr_t)k % 16) || ((uintptr_t)v % 16) || ((uintptr_t)q % 16))
     return (int)cudaErrorInvalidValue;
   int e = cudaSuccess;
-  if (n_chunks > 0) switch (G) {
-#define FD_CASE(n)                                                                        \
-  case n:                                                                                 \
-    e = launch_g<T, n>(q, k, v, kv_len, pacc, pm, pl, B, S, KV, dh, L, chunk, n_chunks, \
-                       softcap, stream);                                                  \
-    break;
-    FD_CASE(1) FD_CASE(2) FD_CASE(3) FD_CASE(4) FD_CASE(5) FD_CASE(6) FD_CASE(7) FD_CASE(8)
-#undef FD_CASE
-    default:
+  if (n_chunks > 0) {
+    if (W == 1)
+      e = launch_w<T, 1>(q, k, v, kv_len, pacc, pm, pl, B, S, KV, G, dh, L, P, chunk, n_chunks,
+                         softcap, stream);
+    else if constexpr (sizeof(T) == 4)  // two words a lane: f32 rows of 132-256 floats
+      e = launch_w<T, 2>(q, k, v, kv_len, pacc, pm, pl, B, S, KV, G, dh, L, P, chunk, n_chunks,
+                         softcap, stream);
+    else
       return (int)cudaErrorInvalidValue;
   }
   if (e != cudaSuccess) return e;
@@ -700,8 +759,10 @@ int launch_nk(const float* q, const __nv_bfloat16* k, const __nv_bfloat16* v, co
 }  // namespace
 
 // q [B, KV, G, dh] f32; k, v [B, S, KV, dh] (bf16 when `bf16`, else f32);
-// kv_len [B] int32; chunk rows per block, a multiple of 16 * 32 / L for
-// L = dh * sizeof(element) / 16; scratch pacc [B, KV, n_chunks, G, dh],
+// kv_len [B] int32; dh <= 256 with rows of a multiple of 16 bytes; chunk
+// rows per block, a multiple of 4 * (4 / W) * 32 / P for the row's L =
+// dh * sizeof(element) / 16 words, P lanes a row and W words a lane (see
+// launch); scratch pacc [B, KV, n_chunks, G, dh],
 // pm / pl [B, KV, n_chunks, G] f32 with n_chunks = ceil(S / chunk); out [B, KV, G, dh] f32 (acc / l when `normalize`,
 // else acc with out_m / out_l [B, KV, G]).  softcap <= 0 means none.
 extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,

@@ -3,7 +3,8 @@
 
 Two kernels serve the card, chosen by :func:`route` from the K/V type and
 dh alone: ``"mma"`` (tensor cores, bf16 with dh a multiple of 16) and
-``"simt"`` (CUDA cores: f32, and bf16 rows of other widths).  Both count in
+``"simt"`` (CUDA cores: f32, and bf16 rows of other widths; any row of a
+multiple of 16 bytes up to dh 256).  Both count in
 ``flash_decode.launches``.
 
 ``flash_decode_partial`` returns the unnormalized (acc, m, l) form that
@@ -28,38 +29,44 @@ MMA_CHUNK_ROWS = 2048  # cache rows per block on route "mma" (whole block steps)
 def route(dtype: torch.dtype, dh: int) -> str:
     """The kernel that serves K/V of ``dtype`` and head width ``dh``, a pure
     function of the two: ``"mma"`` (tensor cores) for bf16 with dh a
-    multiple of 16 in [16, 256]; ``"simt"`` (CUDA cores) for f32 and the
-    other bf16 widths whose rows are 16 bytes times a power of two; raises
-    for the rest."""
+    multiple of 16 in [16, 256]; ``"simt"`` (CUDA cores) for the other rows
+    of a multiple of 16 bytes up to dh 256 (f32 dh a multiple of 4, bf16 a
+    multiple of 8); raises for the rest."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash_decode: K/V must be f32 or bf16, got {dtype}")
     if dtype == torch.bfloat16 and dh % 16 == 0 and 16 <= dh <= 256:
         return "mma"
-    _lanes_per_row(dh, dtype)
+    _row_words(dh, dtype)
     return "simt"
 
 
-def _lanes_per_row(dh: int, dtype: torch.dtype) -> int:
-    """Lanes of 16 bytes that read one K or V row on the "simt" route; it
-    takes a power of two up to a warp (dh in {8, ..., 256} for bf16,
-    {4, ..., 128} for f32)."""
+def _row_words(dh: int, dtype: torch.dtype) -> tuple[int, int, int]:
+    """How the "simt" kernel reads one K or V row, as ``launch`` in
+    csrc/flash_decode.cu works it out: (L, P, W), L in [1, 64] words of 16
+    bytes read by P lanes (the power of two at or above L, at most 32), W
+    words a lane.  The row must be a multiple of 16 bytes and dh at most 256."""
     row = dh * (2 if dtype == torch.bfloat16 else 4)
-    lanes = row // 16
-    if row % 16 or lanes > 32 or lanes & (lanes - 1):
+    if dh < 1 or row % 16 or dh > 256:
         raise ValueError(f"flash_decode: no kernel for dh={dh} in {dtype}: a row must "
-                         "be 16 bytes times a power of two, at most 512 bytes")
-    return lanes
+                         "be a multiple of 16 bytes and dh at most 256")
+    words = row // 16
+    lanes = 1
+    while lanes < words and lanes < 32:
+        lanes <<= 1
+    return words, lanes, -(-words // 32)
 
 
 def _chunk_rows(dh: int, dtype: torch.dtype) -> int:
     """Cache rows per block: whole block steps of the route's kernel, about
     MMA_CHUNK_ROWS on "mma" (every warp takes tiles of MMA_TILE) and
-    CHUNK_ROWS on "simt" (every warp reads ROWS_PER_LANE rows of 32 / lanes
-    at a time)."""
+    CHUNK_ROWS on "simt" (every warp reads ROWS_PER_LANE / W rows of 32 / P
+    at a time, with :func:`_row_words`' P and W)."""
     if route(dtype, dh) == "mma":
         step, rows = WARPS * MMA_TILE, MMA_CHUNK_ROWS
     else:
-        step, rows = WARPS * ROWS_PER_LANE * (32 // _lanes_per_row(dh, dtype)), CHUNK_ROWS
+        _, lanes, words = _row_words(dh, dtype)
+        step = WARPS * (ROWS_PER_LANE // words) * (32 // lanes)
+        rows = CHUNK_ROWS
     return step * max(1, rows // step)
 
 

@@ -9,21 +9,53 @@ import torch
 import torch.nn.functional as F
 
 
+# f32 elements a leaf of another type draws at a time (512 MiB): whole
+# slices of its leading axis, one slice where a slice is larger
+DRAW_BLOCK = 1 << 27
+
+
+def _drawn(shape, dtype, device, fill) -> torch.Tensor:
+    """A leaf of ``shape`` in ``dtype`` whose values ``fill(t)`` draws in
+    place into f32 tensors ``t``.  An f32 leaf (or a 1-D one) is one draw;
+    any other type is allocated in that type and drawn block by block of
+    whole slices of the leading axis (at most DRAW_BLOCK elements unless one
+    slice is larger), each block cast into place, so that the f32 transient
+    is one block and not the leaf (a stacked [46, 4608, 36864] bf16 leaf
+    would need a 31 GB one)."""
+    if dtype == torch.float32 or len(shape) < 2:
+        t = torch.empty(shape, dtype=torch.float32, device=device)
+        fill(t)
+        return t.to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    rows = max(1, DRAW_BLOCK // math.prod(shape[1:]))
+    for i in range(0, shape[0], rows):
+        t = torch.empty(out[i:i + rows].shape, dtype=torch.float32, device=device)
+        fill(t)
+        out[i:i + rows] = t
+        del t  # before the next block is allocated
+    return out
+
+
 def dense_init(generator: torch.Generator, shape, scale: Optional[float] = None,
                dtype=torch.float32, *, device) -> torch.Tensor:
     """Truncated normal at ±2σ, fan-in scaled (maxtext-style); drawn in f32
-    on ``device`` (the generator's device) and cast to ``dtype``."""
+    on ``device`` (the generator's device) and cast to ``dtype`` (``_drawn``:
+    block by block of the leading axis for a type other than f32)."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = (scale if scale is not None else 1.0) / math.sqrt(fan_in)
-    t = torch.empty(shape, dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return t.mul_(std).to(dtype)
+
+    def fill(t):
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        t.mul_(std)
+
+    return _drawn(shape, dtype, device, fill)
 
 
 def embed_init(generator: torch.Generator, shape, dtype=torch.float32, *,
                device) -> torch.Tensor:
-    t = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
-    return t.mul_(0.02).to(dtype)
+    """N(0, 0.02), drawn in f32 and cast as ``dense_init``."""
+    return _drawn(shape, dtype, device,
+                  lambda t: t.normal_(generator=generator).mul_(0.02))
 
 
 def upcast(dtype: torch.dtype) -> torch.dtype:

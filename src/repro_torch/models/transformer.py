@@ -234,7 +234,15 @@ def forward(
     autograd recording) every ``cfg.remat_block`` layers run under
     ``torch.utils.checkpoint`` and are recomputed in the backward.
     """
-    cd = compute_dtype
+    x = _hidden(cfg, params, tokens, compute_dtype, remat, attn_chunk, moe_fn)
+    return _head(cfg, params, x, compute_dtype)
+
+
+def _hidden(cfg: LMConfig, params: Dict, tokens: torch.Tensor, cd, remat: bool,
+            attn_chunk: Optional[int], moe_fn: Optional[Callable]) -> torch.Tensor:
+    """``forward``'s layers: the residual stream [B, S, D] in ``cd`` after
+    the last layer, before the final norm (prefill takes its last
+    position alone)."""
     s = tokens.shape[1]
     x = _embed(cfg, params, tokens, cd)
     positions = torch.arange(s, device=x.device)[None, :]
@@ -256,6 +264,12 @@ def forward(
             x = checkpoint(block, x, first, use_reentrant=False)
         else:
             x = block(x, first)
+    return x
+
+
+def _head(cfg: LMConfig, params: Dict, x: torch.Tensor, cd) -> torch.Tensor:
+    """Logits of the positions of ``x`` in ``cd``: final norm, unembedding,
+    the final softcap in at least f32."""
     logits = _logits(cfg, params, x, cd)
     return softcap(logits.to(upcast(cd)), cfg.final_softcap).to(cd)
 

@@ -173,14 +173,17 @@ def make_decode_step(cfg: LMConfig, compute_dtype=torch.bfloat16, attn_fn=None,
 def make_prefill_step(cfg: LMConfig, compute_dtype=torch.bfloat16, attn_chunk=None,
                       moe_fn=None):
     """``step(params, tokens [B, S]) -> logits [B, V]`` of the last position:
-    the full-prompt forward (no remat, no autograd), in the compute dtype.
-    The reference's ``activation_spec``/``carry_spec`` (XLA sharding
-    constraints) and ``unroll`` (a layer-scan option) have no counterpart."""
+    ``forward``'s layers (no remat, no autograd) in the compute dtype, then
+    the final norm, unembedding and softcap of the last position alone: the
+    reference's jitted ``forward(...)[:, -1]``, whose other rows XLA never
+    materialises ([B, S, V] is 16.8 GB for Gemma-2 at 32,768 tokens in
+    bf16).  The reference's ``activation_spec``/``carry_spec`` (XLA
+    sharding constraints) and ``unroll`` (a layer-scan option) have no
+    counterpart."""
 
     def step(params, tokens):
         with torch.no_grad():
-            logits = T.forward(cfg, params, tokens, compute_dtype=compute_dtype,
-                               remat=False, attn_chunk=attn_chunk, moe_fn=moe_fn)
-        return logits[:, -1]
+            x = T._hidden(cfg, params, tokens, compute_dtype, False, attn_chunk, moe_fn)
+            return T._head(cfg, params, x[:, -1:], compute_dtype)[:, 0]
 
     return step

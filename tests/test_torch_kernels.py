@@ -15,7 +15,8 @@ within rtol=atol=1e-5 on ``test_kernels.py``'s grid (sum/mean, weighted
 and not, 30% -1 padding); flash_decode and its partial form within
 rtol=2e-4, atol=2e-5 in f32 and
 2e-2 in bf16, on ``test_kernels.py``'s cases plus Qwen2.5-14B's grouping
-(G=5, dh=128).
+(G=5, dh=128); its plain version within 1e-5 at Gemma-2-27B's (G=2,
+dh=144, softcap 50) and Qwen3-32B's (G=8, dh=80) f32 heads.
 
 ``TestKernelsOnCard`` holds each CUDA kernel against its plain version on
 the card and skips where torch sees no CUDA device.
@@ -486,17 +487,25 @@ def test_cpu_path_launches_nothing():
 def test_flash_decode_kernel_shapes():
     """bf16 rows with dh a multiple of 16 (up to 256) take the tensor-core
     route, whole block steps of 2048 rows per block; the CUDA-core route
-    takes rows of 16 bytes times a power of two, about 512 rows per block."""
-    from repro_torch.kernels.flash_decode.ops import _chunk_rows, _lanes_per_row, route
+    takes any row of L 16-byte words up to dh 256 (L <= 64), 512 rows per
+    block, and refuses the rest."""
+    from repro_torch.kernels.flash_decode.ops import _chunk_rows, _row_words, route
 
-    assert _lanes_per_row(128, torch.bfloat16) == 16
-    assert _lanes_per_row(128, torch.float32) == 32
-    assert _lanes_per_row(16, torch.bfloat16) == 2
+    # (L words of 16 bytes, P lanes a row, W words a lane)
+    assert _row_words(128, torch.bfloat16) == (16, 16, 1)
+    assert _row_words(128, torch.float32) == (32, 32, 1)
+    assert _row_words(16, torch.bfloat16) == (2, 2, 1)
+    assert _row_words(24, torch.bfloat16) == (3, 4, 1)
+    assert _row_words(144, torch.float32) == (36, 32, 2)
+    assert _row_words(80, torch.float32) == (20, 32, 1)
+    assert _row_words(256, torch.float32) == (64, 32, 2)
     assert route(torch.bfloat16, 144) == "mma"
-    for dh, dtype in ((144, torch.float32), (256, torch.float32), (12, torch.bfloat16)):
+    for dh, dtype in ((272, torch.float32), (6, torch.float32), (12, torch.bfloat16)):
         with pytest.raises(ValueError, match="no kernel"):
             route(dtype, dh)
-    for dh, dtype in ((128, torch.float32), (8, torch.bfloat16), (4, torch.float32)):
+    for dh, dtype in ((128, torch.float32), (8, torch.bfloat16), (4, torch.float32),
+                      (80, torch.float32), (144, torch.float32), (256, torch.float32),
+                      (24, torch.bfloat16)):
         assert _chunk_rows(dh, dtype) == 512
     for dh in (16, 64, 128, 144, 256):
         assert _chunk_rows(dh, torch.bfloat16) == 2048
@@ -505,13 +514,15 @@ def test_flash_decode_kernel_shapes():
 def test_flash_decode_route_is_a_function_of_dtype_and_dh():
     """The route: "mma" for bf16 K/V with 16 <= dh <= 256 a multiple of 16
     (every LM config's dh at full width: 64, 80, 128, 144), "simt" for f32
-    and the smoke configs' dh = 8; other types raise."""
+    rows of any multiple of 4 up to 256 (every LM config's dh too: the
+    serve launcher's f32 cache) and the other bf16 multiples of 8; other
+    types raise."""
     from repro_torch.configs import registry
     from repro_torch.kernels.flash_decode import route
 
     assert {route(torch.bfloat16, dh) for dh in range(16, 257, 16)} == {"mma"}
-    assert route(torch.bfloat16, 8) == "simt"
-    assert {route(torch.float32, dh) for dh in (4, 8, 16, 32, 64, 128)} == {"simt"}
+    assert {route(torch.bfloat16, dh) for dh in range(8, 257, 16)} == {"simt"}
+    assert {route(torch.float32, dh) for dh in range(4, 257, 4)} == {"simt"}
     for dh in (272, 512):
         with pytest.raises(ValueError, match="no kernel"):
             route(torch.bfloat16, dh)
@@ -521,7 +532,46 @@ def test_flash_decode_route_is_a_function_of_dtype_and_dh():
     full = {registry.get_config(a).d_head for a in lms}
     assert full == {64, 80, 128, 144}
     assert {route(torch.bfloat16, dh) for dh in full} == {"mma"}
+    assert {route(torch.float32, dh) for dh in full} == {"simt"}
     assert {registry.get_smoke_config(a).d_head for a in lms} == {8, 16}
+
+
+# (dtype, dh, route or None where no kernel takes the row): Qwen3's and
+# Gemma-2's f32 heads, the widest f32 row, bf16 rows of an odd number of
+# 16-byte words; rows of no whole word and dh past 256 raise
+ROUTE_CASES = [(torch.float32, 80, "simt"), (torch.float32, 144, "simt"),
+               (torch.float32, 256, "simt"), (torch.bfloat16, 24, "simt"),
+               (torch.bfloat16, 72, "simt"), (torch.bfloat16, 80, "mma"),
+               (torch.bfloat16, 12, None), (torch.float32, 6, None),
+               (torch.bfloat16, 272, None), (torch.float32, 272, None)]
+
+
+@pytest.mark.parametrize("dtype,dh,want", ROUTE_CASES,
+                         ids=[f"{str(d).split('.')[-1]}-{dh}" for d, dh, _ in ROUTE_CASES])
+def test_flash_decode_route_case(dtype, dh, want):
+    from repro_torch.kernels.flash_decode import route
+
+    if want is None:
+        with pytest.raises(ValueError, match="no kernel"):
+            route(dtype, dh)
+    else:
+        assert route(dtype, dh) == want
+
+
+# (B, S, KV, G, dh, softcap): the serve launcher's f32 heads at full width:
+# Gemma-2-27B's (G 2, dh 144, softcap 50) and Qwen3-32B's (G 8, dh 80)
+FULL_HEAD_CASES = [(2, 300, 2, 2, 144, 50.0), (2, 300, 1, 8, 80, None)]
+
+
+@pytest.mark.parametrize("case", FULL_HEAD_CASES, ids=["gemma2", "qwen3"])
+def test_flash_decode_ref_matches_reference_at_full_width_heads(ref, case):
+    """The port's plain version (the oracle of the "simt" kernel on the
+    card) against the reference's ``flash_decode`` on the CPU, within 1e-5."""
+    *shape, cap = case
+    q, k, v, kv_len = decode_inputs(*shape, seed=7)
+    want = np.asarray(ref.flash_decode(q, k, v, kv_len, block_s=128, softcap=cap))
+    got = flash_decode_ref(*(torch.from_numpy(a) for a in (q, k, v, kv_len)), softcap=cap)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
 def test_cpu_model_kernels_launch_nothing():
@@ -857,6 +907,30 @@ class TestKernelsOnCard:
         for g, w in zip(flash_decode_partial(q, k, v, kv_len, softcap=cap),
                         flash_decode_partial_ref(q, k, v, kv_len, softcap=cap)):
             torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-5)
+
+    @pytest.mark.parametrize("case,dtype", [
+        (FULL_HEAD_CASES[0], torch.float32), (FULL_HEAD_CASES[1], torch.float32),
+        ((1, 5000, 2, 2, 256, None), torch.float32), ((2, 300, 2, 3, 12, None), torch.float32),
+        ((2, 300, 2, 4, 24, None), torch.bfloat16), ((2, 300, 2, 2, 72, 50.0), torch.bfloat16),
+    ], ids=["gemma2", "qwen3", "dh256", "f32-dh12", "bf16-dh24", "bf16-dh72"])
+    def test_flash_decode_simt_full_width_heads(self, case, dtype):
+        """The "simt" kernel against its plain version, one launch each: f32
+        rows of 20, 36 and 64 words (dh 80, 144, 256; a warp reads one row),
+        and rows of 3 (f32 dh 12, bf16 dh 24) and 9 words (bf16 dh 72),
+        where a warp reads several rows at once in lane groups with idle
+        lanes."""
+        from repro_torch.kernels.flash_decode import route
+
+        *shape, cap = case
+        q, k, v, kv_len = (torch.from_numpy(a).cuda() for a in decode_inputs(*shape, seed=7))
+        k, v = k.to(dtype), v.to(dtype)
+        assert route(k.dtype, shape[-1]) == "simt"
+        n0 = flash_decode.launches
+        got = flash_decode(q, k, v, kv_len, softcap=cap)
+        torch.cuda.synchronize()
+        assert flash_decode.launches == n0 + 1
+        torch.testing.assert_close(got, flash_decode_ref(q, k, v, kv_len, softcap=cap),
+                                   rtol=2e-4, atol=2e-5)
 
     @pytest.mark.parametrize("cap", [None, 50.0], ids=str)
     @pytest.mark.parametrize("dh", [64, 128, 144])

@@ -118,21 +118,27 @@ def test_prefill_on_card_matches_flash_decode(arch):
     torch.testing.assert_close(last, logits, rtol=3e-4, atol=3e-4)
 
 
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("arch", ["gemma2-27b", "qwen3-32b"])
-def test_full_width_decode_on_card_matches_cpu(arch):
+def test_full_width_decode_on_card_matches_cpu(arch, cache_dtype):
     """Two layers at full width (Gemma-2: one local layer of window 4,096
     and one global, softcaps 50 and 30; Qwen3: qk-norm), f32 weights and
-    a bf16 cache of 8,192 rows filled to 6,000, past the window: three
-    steps through the serve launcher's route on the card (the kernel's
-    tensor-core route for a global layer: f32 K/V has no kernel for dh
-    144 or 80; ``decode_attention_ref`` for the local one) against the
-    plain route on the CPU on the same weights and cache.  Logits within
-    3e-4 of their largest magnitude; one launch a global layer a step."""
+    a cache of 8,192 rows filled to 6,000, past the window: three steps
+    through the serve launcher's route on the card (``flash_decode`` for a
+    global layer: its tensor-core route with a bf16 cache, its CUDA-core
+    "simt" route with the f32 cache the launcher keeps, rows of 36 words at
+    dh 144 and 20 at dh 80; ``decode_attention_ref`` for the local one)
+    against the plain route on the CPU on the same weights and cache.
+    Logits within 3e-4 of their largest magnitude; one launch a global
+    layer a step."""
     from dataclasses import replace
 
+    from repro_torch.kernels.flash_decode import route
+
     cfg = replace(registry.get_config(arch), n_layers=2)
+    assert route(cache_dtype, cfg.d_head) == ("mma" if cache_dtype == torch.bfloat16 else "simt")
     params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
-    cache = T.init_cache(cfg, 2, 8192, dtype=torch.bfloat16, device="cuda")
+    cache = T.init_cache(cfg, 2, 8192, dtype=cache_dtype, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(1)
     first = 6000
     for name in ("k", "v"):

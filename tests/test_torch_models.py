@@ -248,6 +248,62 @@ def test_dense_init_is_truncated_and_fan_in_scaled():
     assert torch.equal(t, again)
 
 
+def one_draw(g, shape, kind):
+    """The whole leaf drawn at once in f32 (``torch.randn`` or
+    ``trunc_normal_``, fan-in scaled)."""
+    if kind == "embed":
+        return torch.randn(shape, generator=g, dtype=torch.float32).mul_(0.02)
+    t = torch.empty(shape, dtype=torch.float32)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=g)
+    return t.mul_(1.0 / math.sqrt(shape[-2] if len(shape) >= 2 else shape[-1]))
+
+
+def block_draw(g, shape, kind, rows, dtype):
+    """Each block of ``rows`` slices of the leading axis drawn in f32 in
+    turn from ``g`` (the whole leaf's fan-in scale) and cast."""
+    std = 1.0 / math.sqrt(shape[-2])
+    parts = []
+    for i in range(0, shape[0], rows):
+        t = torch.empty((min(rows, shape[0] - i), *shape[1:]), dtype=torch.float32)
+        if kind == "embed":
+            t.normal_(generator=g).mul_(0.02)
+        else:
+            torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=g)
+            t.mul_(std)
+        parts.append(t.to(dtype))
+    return torch.cat(parts)
+
+
+INIT = {"dense": lambda g, shape, dtype: C.dense_init(g, shape, dtype=dtype, device="cpu"),
+        "embed": lambda g, shape, dtype: C.embed_init(g, shape, dtype, device="cpu")}
+
+
+@pytest.mark.parametrize("kind,shape", [("dense", (3, 17, 19)), ("dense", (7,)),
+                                        ("dense", (256, 512)), ("embed", (40, 8)),
+                                        ("embed", (3, 5, 7))], ids=str)
+def test_init_in_f32_is_one_draw_of_the_leaf(kind, shape):
+    """An f32 leaf is one draw of the whole leaf, bitwise."""
+    got = INIT[kind](torch.Generator().manual_seed(4), shape, torch.float32)
+    assert torch.equal(got, one_draw(torch.Generator().manual_seed(4), shape, kind))
+
+
+@pytest.mark.parametrize("block", [17 * 19, 3 * 17 * 19, 2 * 17 * 19 + 5], ids=str)
+@pytest.mark.parametrize("kind,shape", [("dense", (5, 17, 19)), ("embed", (5, 17, 19)),
+                                        ("dense", (5, 323)), ("embed", (5, 323))], ids=str)
+def test_init_in_bf16_is_its_f32_draw_cast_block_by_block(kind, shape, block, monkeypatch):
+    """A bf16 leaf is allocated in bf16 and drawn in f32 a block of whole
+    leading-axis slices at a time (``DRAW_BLOCK`` elements), each block
+    cast into place: equal, slice for slice, to drawing those blocks in
+    turn in f32 and casting them; the fan-in scale stays the whole
+    leaf's."""
+    monkeypatch.setattr(C, "DRAW_BLOCK", block)
+    got = INIT[kind](torch.Generator().manual_seed(4), shape, torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == shape
+    rows = max(1, block // (17 * 19))
+    want = block_draw(torch.Generator().manual_seed(4), shape, kind, rows, torch.bfloat16)
+    assert torch.equal(got, want)
+
+
 # ---------------------------------------------------------------------------
 # BST
 # ---------------------------------------------------------------------------
@@ -415,6 +471,87 @@ def test_serve_attn_fn_routes_global_layers_to_the_kernel():
         want = [("plain", cfg.local_window) if loc else ("flash", 16) for loc in local] * 10
         assert seen == want
         assert ("plain" in dict(seen)) == (arch == "gemma2-27b")
+
+
+# the serve launcher's f32 route at the full-width heads, two layers:
+# Gemma-2-27B's (dh 144, 4 heads over 2 KV heads, window 8, softcaps 50/30)
+# and Qwen3-32B's (dh 80, 8 heads over 1 KV head, qk-norm)
+WIDE_HEADS = {"gemma2-27b": dict(d_head=144, n_heads=4, n_kv_heads=2, local_window=8),
+              "qwen3-32b": dict(d_head=80, n_heads=8, n_kv_heads=1)}
+
+
+@pytest.mark.parametrize("arch", sorted(WIDE_HEADS))
+def test_serve_decode_at_full_width_heads_matches_reference(arch):
+    """``make_decode_step`` with ``serve_attn_fn`` in f32 (the kernel's
+    "simt" route on the card; its plain version here) against the
+    reference's ``make_decode_step`` on the same parameters, 12 greedy
+    steps on a 16-row cache (past Gemma-2's window): logits within
+    rtol=atol=3e-4, the same tokens."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import registry as R
+    from repro.models import transformer as RT
+    from repro.serve.decode import make_decode_step as ref_decode_step
+    from repro_torch.kernels.flash_decode import route
+    from repro_torch.serve.decode import serve_attn_fn
+
+    rcfg = dataclasses.replace(R.get_smoke_config(arch), **WIDE_HEADS[arch])
+    cfg = dataclasses.replace(registry.get_smoke_config(arch), **WIDE_HEADS[arch])
+    assert route(torch.float32, cfg.d_head) == "simt"
+    tree = noised(numpy_tree(RT.init_params(rcfg, jax.random.PRNGKey(1))),
+                  np.random.default_rng(9))
+    rstep = jax.jit(ref_decode_step(rcfg, compute_dtype=jnp.float32))
+    rcache = RT.init_cache(rcfg, 2, 16, dtype=jnp.float32)
+    params = lm_params_from_numpy(cfg, tree, device="cpu")
+    step = make_decode_step(cfg, torch.float32, attn_fn=serve_attn_fn)
+    cache = T.init_cache(cfg, 2, 16, dtype=torch.float32, device="cpu")
+    tok = np.random.default_rng(5).integers(0, cfg.vocab, (2, 1)).astype(np.int32)
+    params_j = jax.tree.map(jnp.asarray, tree)
+    for t in range(STEPS):
+        want, rnext, rcache = rstep(params_j, rcache, tok, jnp.int32(t))
+        got, nxt, cache = step(params, cache, torch.from_numpy(tok), t)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=3e-4, atol=3e-4)
+        assert np.array_equal(nxt.numpy(), np.asarray(rnext))
+        tok = np.array(rnext)[:, None]
+
+
+@pytest.mark.parametrize("arch", ["gemma2-27b", "qwen3-32b"])
+def test_prefill_step_matches_reference_and_forward(arch, monkeypatch):
+    """``make_prefill_step`` on the SMOKE config, f32: the reference's
+    ``make_prefill_step`` within rtol=atol=1e-5, the port's
+    ``forward(...)[:, -1]`` within 1e-6 (the unembedding's f32 sums in
+    another product shape); the unembedding sees the last position alone."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import registry as R
+    from repro.serve.decode import make_prefill_step as ref_prefill_step
+    from repro_torch.serve.decode import make_prefill_step
+
+    _, tree, _, _ = lm_reference(arch)
+    cfg = registry.get_smoke_config(arch)
+    toks = np.random.default_rng(3).integers(0, cfg.vocab, (2, 16)).astype(np.int32)
+    want = jax.jit(ref_prefill_step(R.get_smoke_config(arch), compute_dtype=jnp.float32,
+                                    attn_chunk=4))(jax.tree.map(jnp.asarray, tree), toks)
+    params = lm_params_from_numpy(cfg, tree, device="cpu")
+    seen = []
+    unembed = T._logits
+
+    def spy(cfg_, params_, x, cd):
+        seen.append(x.shape[1])
+        return unembed(cfg_, params_, x, cd)
+
+    monkeypatch.setattr(T, "_logits", spy)
+    got = make_prefill_step(cfg, torch.float32, attn_chunk=4)(params, torch.from_numpy(toks))
+    assert seen == [1] and got.shape == (2, cfg.vocab)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    with torch.no_grad():
+        full = T.forward(cfg, params, torch.from_numpy(toks), torch.float32, attn_chunk=4)
+    assert seen == [1, 16]
+    torch.testing.assert_close(got, full[:, -1], rtol=1e-6, atol=1e-6)
 
 
 def test_serve_main_refuses_non_lm_and_overlong_runs():
