@@ -369,6 +369,10 @@ GRANITE = "granite-moe-3b-a800m"  # the LM whose training fits one card
 WIDE_ARCHS = ("gemma2-27b", "qwen3-32b")
 WIDE_DECODE_BATCH = {"gemma2-27b": 1, "qwen3-32b": 2}
 WIDE_F32_LAYERS = {"gemma2-27b": 24, "qwen3-32b": 32}
+# the f32 route at decode_32k's cache length, batch 1, on the cut model's
+# weights: Qwen3-32B's f32 cache is 5.37 GB beside 61.0 GB of weights
+# (Gemma-2-27B's, 14.5 GB beside 59.8 GB, would not fit)
+WIDE_F32_LONG = {"qwen3-32b": 1}
 SERVE_BATCH, SERVE_PROMPT, SERVE_DECODE, SERVE_MAX_SEQ = 4, 32, 32, 128  # launch/serve.py's
 PREFILL_SEQ, PREFILL_BATCH = 32768, 1  # LM_SHAPES' prefill_32k; its batch 32 cut to 1
 PREFILL_CHUNK, PREFILL_CHECK_CHUNK = 1024, 2048  # attn_chunk; the chunk-invariance check's
@@ -2080,8 +2084,8 @@ def phase_gnn_train(store, seed, device) -> int:
                                   batch["emask"], batch["labels"], batch["lmask"])
             if it == profiled:
                 out = []
-                busy_ms, prof_ms = profiled_step(lambda: out.append(run()), device,
-                                                 host_ops=False)
+                busy_ms, prof_ms, _ = profiled_step(lambda: out.append(run()), device,
+                                                    host_ops=False)
                 params, opt, metrics = out[0]
                 profiled_iter_s = time.perf_counter() - t0  # the profiler's set-up included
             else:
@@ -2811,7 +2815,7 @@ def phase_model_kernels(seed: int, device) -> dict:
                                                            20))
         b_ms, b_by = bound(live * kv_ * dh_ * esz * 2 + q.numel() * 4 * 2 + b_ * 4,
                            live * kv_ * q.shape[2] * dh_ * 4)
-        res.update(bound_ms=b_ms, bound_by=b_by)
+        res.update(bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / res["ms"])
         emit("flash_decode_case", **res)
         return res
 
@@ -2957,12 +2961,14 @@ def check_logits(got, want, rtol: float, atol: float, what: str) -> float:
     return max_abs_err(got, want)
 
 
-def profiled_step(fn, device, host_ops: bool = True) -> tuple:
+def profiled_step(fn, device, host_ops: bool = True, match=None) -> tuple:
     """``fn()`` once under the profiler: (the union of the device's activity
-    intervals in ms, or None where the trace holds no device event, and the
-    step's wall time in ms, device drained).  Without ``host_ops`` the trace
-    holds the device's activity alone (a step of tens of thousands of
-    operators then costs the profiler less)."""
+    intervals in ms, or None where the trace holds no device event; the
+    step's wall time in ms, device drained; the ms of the device events
+    whose name holds ``match``, None without ``match`` or without such an
+    event).  Without ``host_ops`` the trace holds the device's activity
+    alone (a step of tens of thousands of operators then costs the
+    profiler less)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2970,16 +2976,19 @@ def profiled_step(fn, device, host_ops: bool = True) -> tuple:
     acts += [ProfilerActivity.CUDA] if device.type == "cuda" else []
     with profile(activities=acts) as prof:
         _, sec = wall(fn, device)
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    named = [e.time_range.end - e.time_range.start for e in events
+             if match is not None and match in e.name]
+    match_ms = sum(named) / 1e3 if named else None
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     if not spans:
-        return None, sec * 1e3
+        return None, sec * 1e3, match_ms
     busy, (lo, hi) = 0.0, spans[0]
     for a, b in spans[1:]:
         if a > hi:
             busy, lo = busy + hi - lo, a
         hi = max(hi, b)
-    return (busy + hi - lo) / 1e3, sec * 1e3
+    return (busy + hi - lo) / 1e3, sec * 1e3, match_ms
 
 
 def checked_attn_fn(plain_attn, errs: list):
@@ -3102,7 +3111,7 @@ def phase_lm_serve(seed: int, device) -> dict:
                              f"want {lm.n_layers}")
     # the last position once more, under the profiler: the device's busy
     # time, against that step's wall time and the unprofiled steps' median
-    busy_ms, prof_ms = profiled_step(
+    busy_ms, prof_ms, _ = profiled_step(
         lambda: step_k(params, cache, tok, DECODE_SEQ - 1), device)
     median_ms = float(np.median(step_s)) * 1e3
     report["decode_32k"] = dict(
@@ -3353,7 +3362,7 @@ def phase_lm_train(seed: int, device) -> dict:
             box["out"] = step(params, opt, toks, tgts)
 
         if i == TRAIN_STEPS - 1:  # the last step under the profiler
-            busy_ms, prof_ms = profiled_step(run, device, host_ops=False)
+            busy_ms, prof_ms, _ = profiled_step(run, device, host_ops=False)
         else:
             step_s.append(wall(run, device)[1])
         _, opt, metrics = box.pop("out")
@@ -4193,14 +4202,18 @@ def wide_params(cfg, seed: int, device) -> tuple:
     return params, report
 
 
-def wide_decode(cfg, params, batch: int, seed: int, device) -> dict:
-    """decode_32k's shape in bf16 at ``batch``: the cache filled from the
-    seed to DECODE_SEQ - DECODE_STEPS, one step through both routes (every
+def wide_decode(cfg, params, batch: int, seed: int, device, dtype=None,
+                reduced: tuple = ()) -> dict:
+    """decode_32k's shape in ``dtype`` (bf16 by default; f32 is the serve
+    launcher's route) at ``batch``: the cache filled from the seed to
+    DECODE_SEQ - DECODE_STEPS, one step through both routes (every
     ``flash_decode`` launch held against its plain version, the local
-    layers through ``decode_attention_ref`` on both; logits finite and
-    within 0.1 of their largest magnitude), then DECODE_STEPS greedy steps
-    through ``serve_attn_fn`` timed, one launch a global layer a step, and
-    one more under the profiler."""
+    layers through ``decode_attention_ref`` on both; logits finite and, in
+    bf16, within 0.1 of their largest magnitude, in f32 within 3e-4), then
+    DECODE_STEPS greedy steps through ``serve_attn_fn`` timed, one launch a
+    global layer a step, and one more under the profiler (the device's
+    busy time, ``flash_decode``'s device ms).  ``reduced`` adds the cuts
+    of ``cfg`` to the report's."""
     import numpy as np
     import torch
 
@@ -4210,9 +4223,12 @@ def wide_decode(cfg, params, batch: int, seed: int, device) -> dict:
     from repro_torch.serve.decode import (make_decode_step, make_flash_attn_fn,
                                           make_serve_attn_fn, serve_attn_fn)
 
+    dtype = dtype or torch.bfloat16
+    bf16 = dtype == torch.bfloat16
+    what = f"{cfg.name} decode {'bf16' if bf16 else 'f32'} at {DECODE_SEQ} rows"
     reset_peak(device)
     gen = torch.Generator(device=device).manual_seed(seed)
-    cache = T.init_cache(cfg, batch, DECODE_SEQ, dtype=torch.bfloat16, device=device)
+    cache = T.init_cache(cfg, batch, DECODE_SEQ, dtype=dtype, device=device)
     first = DECODE_SEQ - DECODE_STEPS
     (_, setup_s) = wall(lambda: [cache[n][i, :, :first].normal_(generator=gen)
                                  for n in ("k", "v") for i in range(cfg.n_layers)], device)
@@ -4220,38 +4236,42 @@ def wide_decode(cfg, params, batch: int, seed: int, device) -> dict:
     errs = []
     tok = torch.from_numpy(np.random.default_rng(seed).integers(
         0, cfg.vocab, (batch, 1), dtype=np.int32)).to(device)
-    lp, tp, _ = make_decode_step(cfg, torch.bfloat16, attn_fn=make_serve_attn_fn(plain_flash))(
+    lp, tp, _ = make_decode_step(cfg, dtype, attn_fn=make_serve_attn_fn(plain_flash))(
         params, cache, tok, first)
-    lc, tc, _ = make_decode_step(cfg, torch.bfloat16, attn_fn=make_serve_attn_fn(
+    lc, tc, _ = make_decode_step(cfg, dtype, attn_fn=make_serve_attn_fn(
         checked_attn_fn(plain_flash, errs)))(params, cache, tok, first)
-    limit = 0.1 * float(lp.abs().max())
-    err = check_logits(lc, lp, 0.0, limit, f"{cfg.name} decode bf16")
+    rtol, limit = (0.0, 0.1 * float(lp.abs().max())) if bf16 else (3e-4, 3e-4)
+    err = check_logits(lc, lp, rtol, limit, what)
     globals_ = n_global(cfg, DECODE_SEQ)
     if len(errs) != globals_:
-        raise AssertionError(f"{cfg.name} decode: {len(errs)} checked launches, want {globals_}")
-    step = make_decode_step(cfg, torch.bfloat16, attn_fn=serve_attn_fn)
+        raise AssertionError(f"{what}: {len(errs)} checked launches, want {globals_}")
+    step = make_decode_step(cfg, dtype, attn_fn=serve_attn_fn)
     step_s, per_step, logits, tok = decode_steps(step, params, cache, tok, first, DECODE_STEPS,
                                                  device)
     if not bool(torch.isfinite(logits).all()):
-        raise AssertionError(f"{cfg.name} decode: non-finite logits")
+        raise AssertionError(f"{what}: non-finite logits")
     if "flash_decode" in PATH_KERNELS["lm_wide"] and any(n != globals_ for n in per_step):
-        raise AssertionError(f"{cfg.name} decode: flash_decode launches per step {per_step}, "
+        raise AssertionError(f"{what}: flash_decode launches per step {per_step}, "
                              f"want {globals_}")
-    busy_ms, prof_ms = profiled_step(lambda: step(params, cache, tok, DECODE_SEQ - 1), device)
+    busy_ms, prof_ms, kernel_ms = profiled_step(
+        lambda: step(params, cache, tok, DECODE_SEQ - 1), device, match="flash_decode")
     median_ms = float(np.median(step_s)) * 1e3
     report = dict(
-        config=cfg.name, batch=batch, reduced=[f"decode_32k batch 128 -> {batch}"],
-        cache_len=DECODE_SEQ, first_pos=first, steps=DECODE_STEPS, setup_s=setup_s, step_s=step_s, median_step_ms=median_ms,
-        tok_per_s=batch * DECODE_STEPS / sum(step_s), launches_per_step=per_step,
-        global_layers=globals_, route=route(torch.bfloat16, cfg.d_head),
+        config=cfg.name, layers=cfg.n_layers, batch=batch,
+        reduced=[*reduced, f"decode_32k batch 128 -> {batch}"], cache_len=DECODE_SEQ,
+        first_pos=first, steps=DECODE_STEPS, setup_s=setup_s, step_s=step_s,
+        median_step_ms=median_ms, tok_per_s=batch * DECODE_STEPS / sum(step_s),
+        launches_per_step=per_step, global_layers=globals_, route=route(dtype, cfg.d_head),
         checked_launches=len(errs), launch_max_abs_err=max(errs), max_abs_err=err,
-        logits_limit=limit, logit_absmax=float(lp.abs().max()),
+        logits_rtol=rtol, logits_limit=limit, logit_absmax=float(lp.abs().max()),
         tokens_equal=bool(torch.equal(tc, tp)), profiled_step_ms=prof_ms,
         device_busy_ms=busy_ms,
+        device_busy_share=None if busy_ms is None else busy_ms / median_ms,
         idle_share_median=None if busy_ms is None else 1.0 - busy_ms / median_ms,
+        flash_decode_device_ms=kernel_ms,
         cache_bytes=2 * cache["k"].numel() * cache["k"].element_size(),
         peak_allocated_bytes=peak_bytes(device))
-    emit("lm_wide_decode", **report)
+    emit("lm_wide_decode" if bf16 else "lm_wide_f32_long", **report)
     del cache
     free_device(device)
     return report
@@ -4347,6 +4367,10 @@ def wide_serve_f32(arch: str, seed: int, device) -> dict:
                   launch_max_abs_err=max(errs), max_abs_err=err,
                   param_bytes=tree_bytes(params), peak_allocated_bytes=peak_bytes(device))
     emit("lm_wide_f32", **report)
+    if arch in WIDE_F32_LONG:
+        report["long"] = wide_decode(cfg, params, WIDE_F32_LONG[arch], seed, device,
+                                     dtype=torch.float32,
+                                     reduced=[f"layers {full.n_layers} -> {cfg.n_layers}"])
     del params
     free_device(device)
     return report

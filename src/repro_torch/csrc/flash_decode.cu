@@ -27,13 +27,13 @@
 // flash_decode.ops.merge_partials and divides acc by l when asked.  The
 // wrapper picks the route from the element type and dh alone.
 //
-// Route "mma" (bf16 K/V, dh a multiple of 16 up to 256): tensor cores.
-// The CUDA-core route below ran at 30% of the bound's rate at decode_32k:
-// it is bound by issue, not bytes (16 lanes per row repeat each softmax,
-// and every dot product costs shuffles).  Here each warp walks tiles of 16
-// positions of its block's chunk (warp w takes tiles w, w + 4, ...) through
-// a ring of 3 shared-memory stages filled by cp.async, so the next tiles'
-// K and V are in flight while the current one is computed.  Rows are
+// Route "mma" (bf16 K/V, dh a multiple of 16 up to 256): tensor cores.  The
+// first CUDA-core kernel ran at 30% of the bound's rate at decode_32k: it
+// was bound by instructions, not bytes (16 lanes per row repeated each
+// softmax, and every dot product cost shuffles).  Here each warp walks tiles
+// of 16 positions of its block's chunk (warp w takes tiles w, w + 4, ...)
+// through a ring of 3 shared-memory stages filled by cp.async, so the next
+// tiles' K and V are in flight while the current one is computed.  Rows are
 // padded by 16 bytes, which puts the 8 rows of every ldmatrix in distinct
 // banks.  Per tile:
 //  - S^T [16 pos x 8 heads] = K [16 x dh] q^T [dh x 8] with
@@ -63,35 +63,56 @@
 // and acc stay in registers.
 //
 // Route "simt" (f32 K/V, or bf16 rows of other widths: any row of L words
-// of 16 bytes, 1 <= L <= 64, dh <= 256): CUDA cores.  Inside a block no
-// step waits for another warp: each warp walks its own rows straight from
-// device memory in groups of P lanes a row, P the power of two at or above
-// L up to a warp (a 256-byte bf16 row is one coalesced load of 16 lanes, so
-// a warp reads 32 / P rows at once).  Lane i of a group holds the row's
-// 16-byte words i, i + P, ...: W = ceil(L / 32) words, one where L <= 32,
-// two for f32 rows above 128 floats.  Words past L (lanes L..P-1 of a group,
-// and the tail of the second word) load nothing, hold zero q and add 0 to
-// the sums: they cost instruction slots, not bytes.  Each lane keeps the G
-// query heads' slices of q for its words in registers; a row's G dot products
-// are summed over its P lanes with xor shuffles; the running max, the
-// rescale and the f32 accumulators stay in registers, with one max per
-// kU / W * 32 / P rows and a rescale only when that max moves;
-// exponentials use the fast exp2-based __expf (a few ulp; the sums stay
-// f32).  K and V are f32 or bf16; everything accumulates in f32.  G and W
-// are template arguments (G at most 8), so that q and the accumulators
-// stay in registers; with W = 2 each lane keeps kU / 2 rows in flight, so
-// that the loads in flight per lane stay 2 kU words.  The warps' states
-// take 4 kWarps G (dh + 2) bytes of shared memory: 33,024 at G = 8 and
-// dh = 256, under the 48 KB a block gets without asking.
+// of 16 bytes, 1 <= L <= 64, dh <= 256): CUDA cores.  The first CUDA-core
+// kernel read a row with a group of lanes, summed each of its G dot
+// products with a chain of xor shuffles, repeated the softmax on every lane
+// of the group and used each step's loads in the same step: it was bound by
+// instructions and latency (10% of the bound at G 8, dh 80).  Here, as on
+// route "mma", each warp walks tiles of T positions of its block's chunk
+// (warp w takes tiles w, w + 4, ...) through its own ring of kStages
+// shared-memory stages filled by cp.async, so the next tiles' K and V are
+// in flight while the current one is computed.  A staged row takes L | 1
+// words: the odd stride puts the same word of 8 rows in 8 distinct banks.
+// Per tile:
+//  - Scores: lane t + T hg takes position t and the heads hg, hg + H, ...
+//    (H = 32 / T head groups).  It runs their dot products over its staged
+//    K row and q's rows, which sit in shared memory and are read as
+//    broadcasts: no shuffle.
+//  - The softmax runs once per (position, head): the tile's max of a head
+//    is one xor-shuffle max over the T lanes of its head group (log2 T
+//    steps a tile, not a chain a row), and exp is taken once per score.
+//    Each lane keeps its heads' running max and its own positions' part of
+//    the sum; p and each head's rescale factor go to the warp's slot in
+//    shared memory.
+//  - acc += p V: lane i holds acc of the (head, word) pairs i + 32 j (head
+//    pair % G, word pair / G): at most 8 G / VE pairs (VE elements a
+//    word), 8 G floats.  For four positions at a time it reads its pair's
+//    p as one float4 and the staged V words (at G 8, lanes 8 i to 8 i + 7
+//    hold the 8 heads of one word and read it as a broadcast).  acc stays
+//    in f32 registers and no lane sums another's.
+// The warps' states meet once, in shared memory, at the end.  T is the
+// largest of 32, 16, 8 and 4 whose rings (kWarps x kStages K and V tiles
+// of T rows) fit kRingBytes: 16 at f32 dh 64-80, 8 at dh 128-144, 4 at
+// dh 256, 32 for bf16 dh 24 and 72.  G and T are template arguments, so
+// that the scores and acc stay in registers and every loop over heads and
+// a tile's positions is unrolled and branch-free: the first build of this
+// design, with T and the heads a lane as run-time bounds, branched once a
+// head a word and ran at 17-32% of the bound's rate at G 8, dh 80.
+// Shared memory: q (4 G QS bytes, QS = dh rounded to an odd number of
+// float4), p (4 kWarps G (T + 4) bytes) and the rings, which hold the
+// warps' states (4 kWarps G (dh + 2) bytes) at the end: 91,264 bytes at
+// f32 dh 80, G 8 (two blocks an SM), 77,344 at dh 144, G 2.  Two stages of
+// a 90,112-byte budget and 1024 rows a chunk measured fastest over the
+// CUDA-core shapes of the model paths (kernels/flash_decode/probe_simt.py
+// times the others); exponentials use the fast exp2-based __expf (a few
+// ulp; the sums stay f32).  K and V are f32 or bf16; everything
+// accumulates in f32.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kU = 4;     // rows per lane in flight (K and V each)
 constexpr int kMaxG = 8;  // query heads per KV head
 constexpr float kNegInf = -1e30f;  // the reference's mask value
 
@@ -121,191 +142,6 @@ struct Chunk<__nv_bfloat16> {
     }
   }
 };
-
-// Grid (n_chunks, KV, B).  q [B, KV, G, dh] f32; k, v [B, S, KV, dh] T;
-// partials pacc [B, KV, n_chunks, G, dh], pm / pl [B, KV, n_chunks, G] f32;
-// a row is L words of 16 bytes read by P lanes, W words a lane; chunk is a
-// multiple of kWarps * (kU / W) * 32 / P rows.
-template <typename T, int G, int W>
-__global__ void __launch_bounds__(kThreads)
-flash_decode_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const int* __restrict__ kv_len,
-                          float* __restrict__ pacc, float* __restrict__ pm,
-                          float* __restrict__ pl, int S, int KV, int dh, int L, int P, int chunk,
-                          float scale, float softcap) {
-  constexpr int VE = Chunk<T>::kElems;
-  constexpr int U = kU / W;  // rows in flight per lane
-  extern __shared__ __align__(16) float smem[];  // m, l [kWarps][G]; acc [kWarps][G][dh]
-  float* sm_m = smem;
-  float* sm_l = sm_m + kWarps * G;
-  float* sm_acc = sm_l + kWarps * G;
-
-  const int sp = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int R = 32 / P, sub = lane % P, rg = lane / P;
-  const int len = min(max(kv_len[b], 0), S);
-  const int p_begin = sp * chunk, p_end = min(len, p_begin + chunk);
-  if (p_begin >= p_end) return;  // past kv_len: the merge skips this partial
-  const long long seq_stride = (long long)KV * dh;
-  const long long bh = (long long)b * KV + h;
-  const T* kb = k + ((long long)b * S * KV + h) * dh;
-  const T* vb = v + ((long long)b * S * KV + h) * dh;
-  int word[W];   // this lane's 16-byte words of a row
-  bool live[W];  // word < L: the others load nothing and stay zero
-#pragma unroll
-  for (int j = 0; j < W; ++j) {
-    word[j] = j * P + sub;
-    live[j] = word[j] < L;
-  }
-
-  float qr[G][W][VE];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-#pragma unroll
-    for (int j = 0; j < W; ++j) {
-      const float4* qg = reinterpret_cast<const float4*>(q + (bh * G + g) * dh + word[j] * VE);
-#pragma unroll
-      for (int e = 0; e < VE / 4; ++e) {
-        const float4 x = live[j] ? __ldg(qg + e) : make_float4(0.f, 0.f, 0.f, 0.f);
-        qr[g][j][4 * e] = x.x;
-        qr[g][j][4 * e + 1] = x.y;
-        qr[g][j][4 * e + 2] = x.z;
-        qr[g][j][4 * e + 3] = x.w;
-      }
-    }
-  }
-  float m[G], l[G], acc[G][W][VE];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = kNegInf;
-    l[g] = 0.f;
-#pragma unroll
-    for (int j = 0; j < W; ++j)
-#pragma unroll
-      for (int e = 0; e < VE; ++e) acc[g][j][e] = 0.f;
-  }
-
-  for (int r0 = p_begin + warp * U * R; r0 < p_end; r0 += kWarps * U * R) {
-    uint4 kc[U][W], vc[U][W];
-    bool ok[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int row = r0 + u * R + rg;
-      ok[u] = row < p_end;
-#pragma unroll
-      for (int j = 0; j < W; ++j) {
-        kc[u][j] = vc[u][j] = make_uint4(0u, 0u, 0u, 0u);
-        if (ok[u] && live[j]) {
-          const long long off = row * seq_stride + word[j] * VE;
-          kc[u][j] = __ldg(reinterpret_cast<const uint4*>(kb + off));
-          vc[u][j] = __ldg(reinterpret_cast<const uint4*>(vb + off));
-        }
-      }
-    }
-    float s[U][G];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      float kf[W][VE];
-#pragma unroll
-      for (int j = 0; j < W; ++j) Chunk<T>::load(kc[u][j], kf[j]);
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float d = 0.f;
-#pragma unroll
-        for (int j = 0; j < W; ++j)
-#pragma unroll
-          for (int e = 0; e < VE; ++e) d = fmaf(qr[g][j][e], kf[j][e], d);
-        for (int o = P >> 1; o; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
-        d *= scale;
-        if (softcap > 0.f) d = softcap * tanhf(d / softcap);
-        s[u][g] = ok[u] ? d : kNegInf;
-      }
-    }
-    float p[U][G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float mx = s[0][g];
-#pragma unroll
-      for (int u = 1; u < U; ++u) mx = fmaxf(mx, s[u][g]);
-      for (int o = P; o < 32; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      if (mx > m[g]) {  // warp-uniform: rescale only when the max moves
-        const float alpha = __expf(m[g] - mx);
-        m[g] = mx;
-        l[g] *= alpha;
-#pragma unroll
-        for (int j = 0; j < W; ++j)
-#pragma unroll
-          for (int e = 0; e < VE; ++e) acc[g][j][e] *= alpha;
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        p[u][g] = ok[u] ? __expf(s[u][g] - m[g]) : 0.f;
-        l[g] += p[u][g];
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-#pragma unroll
-      for (int j = 0; j < W; ++j) {
-        float vf[VE];
-        Chunk<T>::load(vc[u][j], vf);
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-#pragma unroll
-          for (int e = 0; e < VE; ++e) acc[g][j][e] = fmaf(p[u][g], vf[e], acc[g][j][e]);
-        }
-      }
-    }
-  }
-
-  // the warp's row groups share m; sum their l and acc
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    for (int o = P; o < 32; o <<= 1) {
-      l[g] += __shfl_xor_sync(0xffffffffu, l[g], o);
-#pragma unroll
-      for (int j = 0; j < W; ++j)
-#pragma unroll
-        for (int e = 0; e < VE; ++e)
-          acc[g][j][e] += __shfl_xor_sync(0xffffffffu, acc[g][j][e], o);
-    }
-  }
-  if (rg == 0) {
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-#pragma unroll
-      for (int j = 0; j < W; ++j)
-        if (live[j])
-#pragma unroll
-          for (int e = 0; e < VE; ++e)
-            sm_acc[(warp * G + g) * dh + word[j] * VE + e] = acc[g][j][e];
-      if (sub == 0) {
-        sm_m[warp * G + g] = m[g];
-        sm_l[warp * G + g] = l[g];
-      }
-    }
-  }
-  __syncthreads();
-  // the warps' states merged into this split's partial, in a fixed order
-  const long long part = bh * gridDim.x + sp;
-  for (int i = threadIdx.x; i < G * dh; i += kThreads) {
-    const int g = i / dh;
-    float mm = kNegInf;
-    for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, sm_m[w * G + g]);
-    float a = 0.f;
-    for (int w = 0; w < kWarps; ++w) a += expf(sm_m[w * G + g] - mm) * sm_acc[w * G * dh + i];
-    pacc[part * G * dh + i] = a;
-  }
-  if (threadIdx.x < G) {
-    const int g = threadIdx.x;
-    float mm = kNegInf;
-    for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, sm_m[w * G + g]);
-    float ls = 0.f;
-    for (int w = 0; w < kWarps; ++w) ls += expf(sm_m[w * G + g] - mm) * sm_l[w * G + g];
-    pm[part * G + g] = mm;
-    pl[part * G + g] = ls;
-  }
-}
 
 // Grid (B * KV, G), kMergeThreads threads: the log-sum-exp merge of the
 // live chunks' partials; acc / l when normalize, else (acc, m, l).  A
@@ -386,66 +222,6 @@ flash_decode_merge_kernel(const float* __restrict__ pacc, const float* __restric
     out_l[bh * G + g] = lt;
   }
 }
-
-template <typename T, int G, int W>
-int launch_g(const float* q, const T* k, const T* v, const int* kv_len, float* pacc, float* pm,
-             float* pl, int B, int S, int KV, int dh, int L, int P, int chunk, int n_chunks,
-             float softcap, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * kWarps * G * (dh + 2);  // at most 33,024 bytes
-  const float scale = 1.0f / sqrtf((float)dh);
-  flash_decode_split_kernel<T, G, W><<<dim3(n_chunks, KV, B), kThreads, smem, stream>>>(
-      q, k, v, kv_len, pacc, pm, pl, S, KV, dh, L, P, chunk, scale, softcap);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int W>
-int launch_w(const float* q, const T* k, const T* v, const int* kv_len, float* pacc, float* pm,
-             float* pl, int B, int S, int KV, int G, int dh, int L, int P, int chunk,
-             int n_chunks, float softcap, cudaStream_t stream) {
-  switch (G) {
-#define FD_CASE(n)                                                                             \
-  case n:                                                                                      \
-    return launch_g<T, n, W>(q, k, v, kv_len, pacc, pm, pl, B, S, KV, dh, L, P, chunk, n_chunks, \
-                             softcap, stream);
-    FD_CASE(1) FD_CASE(2) FD_CASE(3) FD_CASE(4) FD_CASE(5) FD_CASE(6) FD_CASE(7) FD_CASE(8)
-#undef FD_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
-int launch(const float* q, const T* k, const T* v, const int* kv_len, float* pacc, float* pm,
-           float* pl, float* out, float* out_m, float* out_l, int B, int S, int KV, int G, int dh,
-           int chunk, float softcap, int normalize, cudaStream_t stream) {
-  // L words of 16 bytes a row (dh <= 256: L <= 64), read by groups of P
-  // lanes (the power of two at or above L, at most a warp), W words a lane
-  const int row_bytes = dh * (int)sizeof(T);
-  const int L = row_bytes / 16;
-  int P = 1;
-  while (P < L && P < 32) P <<= 1;
-  const int W = (L + 31) / 32;
-  const int n_chunks = (S + chunk - 1) / chunk;
-  if (row_bytes % 16 || L < 1 || dh > 256 || chunk % (kWarps * (kU / W) * (32 / P)) ||
-      ((uintptr_t)k % 16) || ((uintptr_t)v % 16) || ((uintptr_t)q % 16))
-    return (int)cudaErrorInvalidValue;
-  int e = cudaSuccess;
-  if (n_chunks > 0) {
-    if (W == 1)
-      e = launch_w<T, 1>(q, k, v, kv_len, pacc, pm, pl, B, S, KV, G, dh, L, P, chunk, n_chunks,
-                         softcap, stream);
-    else if constexpr (sizeof(T) == 4)  // two words a lane: f32 rows of 132-256 floats
-      e = launch_w<T, 2>(q, k, v, kv_len, pacc, pm, pl, B, S, KV, G, dh, L, P, chunk, n_chunks,
-                         softcap, stream);
-    else
-      return (int)cudaErrorInvalidValue;
-  }
-  if (e != cudaSuccess) return e;
-  flash_decode_merge_kernel<<<dim3(B * KV, G), kMergeThreads, 0, stream>>>(
-      pacc, pm, pl, kv_len, out, out_m, out_l, S, KV, G, dh, chunk, n_chunks, normalize);
-  return (int)cudaGetLastError();
-}
-
 
 // ---------------------------------------------------------------------------
 // Route "mma": bf16 K/V on tensor cores
@@ -756,15 +532,390 @@ int launch_nk(const float* q, const __nv_bfloat16* k, const __nv_bfloat16* v, co
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// Route "simt": f32 K/V, and bf16 rows of other widths, on CUDA cores
+// ---------------------------------------------------------------------------
+namespace simt {
+
+using tc::cp_async16;
+using tc::cp_async_commit;
+using tc::cp_async_wait;
+using tc::kMaxCards;
+using tc::smem_addr;
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kStages = 2;                  // shared-memory ring depth per warp
+constexpr int kRingBytes = 90112;           // the warps' rings together, at most
+constexpr int kMaxTile = 32, kMinTile = 4;  // positions per warp tile
+constexpr int kMaxSmem = 232448;            // the H100's dynamic shared memory a block
+
+// A staged row of L 16-byte words takes L | 1 words: an odd stride puts the
+// same word of 8 consecutive rows in 8 distinct banks.
+__host__ __device__ constexpr int row_stride(int L) { return L | 1; }
+inline long long ring_bytes(int T, int L) {
+  return (long long)kWarps * kStages * 2 * T * row_stride(L) * 16;
+}
+// Positions per warp tile: the largest power of two from kMaxTile down to
+// kMinTile whose rings fit kRingBytes.  kWarps x kMaxTile divides ops.py's
+// CHUNK_ROWS, so every tile size divides the chunk.
+inline int tile_rows(int L) {
+  int T = kMaxTile;
+  while (T > kMinTile && ring_bytes(T, L) > kRingBytes) T >>= 1;
+  return T;
+}
+// q's row stride in floats: dh rounded up to an odd number of float4, so
+// that two head groups' rows in one read fall in distinct banks
+__host__ __device__ constexpr int q_stride(int dh) { return 4 * ((dh / 4) | 1); }
+
+// Grid (n_chunks, KV, B), kThreads threads; q [B, KV, G, dh] f32; k, v
+// [B, S, KV, dh] E; partials pacc [B, KV, n_chunks, G, dh], pm / pl [B, KV,
+// n_chunks, G] f32; T positions a warp tile (tile_rows); dynamic shared
+// memory: q [G][QS], p [kWarps][G][T + 4] (T probabilities, then the
+// rescale factor), then the rings [kWarps][kStages][K, V][T][RS] words,
+// which hold the warps' states at the end.  G and T are template arguments:
+// every loop over heads, head groups and a tile's positions is unrolled
+// and branch-free, so that a tile's shared loads are in flight together.
+template <typename E, int G, int T>
+__global__ void __launch_bounds__(kThreads)
+flash_decode_simt_kernel(const float* __restrict__ q, const E* __restrict__ k,
+                         const E* __restrict__ v, const int* __restrict__ kv_len,
+                         float* __restrict__ pacc, float* __restrict__ pm,
+                         float* __restrict__ pl, int S, int KV, int dh, int chunk, float scale,
+                         float softcap) {
+  constexpr int VE = Chunk<E>::kElems;  // elements of a 16-byte word
+  constexpr int NP = 8 * G / VE;        // (head, word) pairs a lane: G L / 32, L <= 256 / VE
+  constexpr int H = 32 / T;             // head groups: lane t + T hg takes heads hg + i H
+  constexpr int GH = (G + H - 1) / H;   // heads a lane, i < GH
+  constexpr int PS = T + 4;             // a row of p: T probabilities, the rescale factor
+  const int L = dh / VE, RS = row_stride(L), QS = q_stride(dh);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* q_s = reinterpret_cast<float*>(smem_raw);
+  float* p_s = q_s + G * QS;
+  uint4* ring = reinterpret_cast<uint4*>(p_s + kWarps * G * PS);
+
+  const int sp = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int len = min(max(kv_len[b], 0), S);
+  const int p_begin = sp * chunk, p_end = min(len, p_begin + chunk);
+  if (p_begin >= p_end) return;  // past kv_len: the merge skips this partial
+  const long long seq_stride = (long long)KV * dh;
+  const long long bh = (long long)b * KV + h;
+  const E* kb = k + ((long long)b * S * KV + h) * dh;
+  const E* vb = v + ((long long)b * S * KV + h) * dh;
+
+  const int d4n = dh / 4;
+  for (int i = threadIdx.x; i < G * d4n; i += kThreads) {
+    const int g = i / d4n, c = i - g * d4n;
+    reinterpret_cast<float4*>(q_s + g * QS)[c] =
+        __ldg(reinterpret_cast<const float4*>(q + (bh * G + g) * dh) + c);
+  }
+  __syncthreads();
+
+  const int n_tiles = (p_end - p_begin + T - 1) / T;
+  const int my_tiles = warp < n_tiles ? (n_tiles - warp + kWarps - 1) / kWarps : 0;
+  uint4* wring = ring + warp * kStages * 2 * T * RS;  // this warp's stages: K, V
+  float* pw = p_s + warp * G * PS;                     // this warp's p and rescale factors
+
+  // Tile i of this warp (the chunk's tile warp + i * kWarps) into stage st:
+  // word x = lane + 32 j of a tile is row x / L, column x % L, so a lane's
+  // copies step by the same offsets in every tile.
+  const int r_lane = lane / L, c_lane = lane % L, dr = 32 / L, dc = 32 % L;
+  const long long d_off = dr * seq_stride + dc * VE, wrap_off = seq_stride - (long long)L * VE;
+  const int d_so = dr * RS + dc, wrap_so = RS - L;
+  auto load_tile = [&](int i, int st) {
+    const int r0 = p_begin + (warp + i * kWarps) * T;
+    const uint32_t sk = smem_addr(wring + st * 2 * T * RS), sv = sk + T * RS * 16;
+    const E* k0 = kb + r0 * seq_stride;
+    const E* v0 = vb + r0 * seq_stride;
+    const int rows = p_end - r0;  // rows past it are zero-filled
+    int r = r_lane, c = c_lane, so = r_lane * RS + c_lane;
+    long long off = r_lane * seq_stride + c_lane * VE;
+    for (int x = lane; x < T * L; x += 32) {
+      const bool ok = r < rows;
+      cp_async16(sk + so * 16, k0 + (ok ? off : 0), ok);
+      cp_async16(sv + so * 16, v0 + (ok ? off : 0), ok);
+      r += dr;
+      c += dc;
+      off += d_off;
+      so += d_so;
+      if (c >= L) {
+        c -= L;
+        ++r;
+        off += wrap_off;
+        so += wrap_so;
+      }
+    }
+  };
+
+  const int t_lane = lane % T, hg = lane / T;
+  const float* qh[GH];  // this lane's heads' rows of q
+#pragma unroll
+  for (int i = 0; i < GH; ++i) qh[i] = q_s + min(hg + i * H, G - 1) * QS;
+  float m[GH], l[GH];  // per head of this lane: running max, sum over its positions
+#pragma unroll
+  for (int i = 0; i < GH; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+  }
+  // p V: pair lane + 32 j is head (pair % G), word (pair / G); np pairs are
+  // live somewhere in the warp, those past G L in none
+  const int np = (G * L + 31) / 32;
+  float acc[NP][VE];
+#pragma unroll
+  for (int j = 0; j < NP; ++j)
+#pragma unroll
+    for (int e = 0; e < VE; ++e) acc[j][e] = 0.f;
+
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < my_tiles) load_tile(st, st);
+    cp_async_commit();
+  }
+  for (int it = 0; it < my_tiles; ++it) {
+    if (it + kStages - 1 < my_tiles) load_tile(it + kStages - 1, (it + kStages - 1) % kStages);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();  // this tile's group has landed
+    __syncwarp();
+    const uint4* sk = wring + (it % kStages) * 2 * T * RS;
+    const uint4* sv = sk + T * RS;
+    const int r0 = p_begin + (warp + it * kWarps) * T;
+
+    // scores of position t_lane against this lane's heads: no shuffle
+    float s[GH];
+#pragma unroll
+    for (int i = 0; i < GH; ++i) s[i] = 0.f;
+    const uint4* krow = sk + t_lane * RS;
+#pragma unroll 4
+    for (int w = 0; w < L; ++w) {
+      const uint4 kw = krow[w];  // one 16-byte shared load
+      float kf[VE];
+      Chunk<E>::load(kw, kf);
+#pragma unroll
+      for (int i = 0; i < GH; ++i) {
+        const float4* qw = reinterpret_cast<const float4*>(qh[i] + w * VE);
+#pragma unroll
+        for (int e4 = 0; e4 < VE / 4; ++e4) {
+          const float4 x = qw[e4];
+          s[i] = fmaf(x.x, kf[4 * e4], s[i]);
+          s[i] = fmaf(x.y, kf[4 * e4 + 1], s[i]);
+          s[i] = fmaf(x.z, kf[4 * e4 + 2], s[i]);
+          s[i] = fmaf(x.w, kf[4 * e4 + 3], s[i]);
+        }
+      }
+    }
+    // the softmax once per (position, head): one max per head a tile over
+    // the T lanes of a head group
+    const bool live = r0 + t_lane < p_end;
+    float x[GH], mx[GH];
+#pragma unroll
+    for (int i = 0; i < GH; ++i) {
+      x[i] = s[i] * scale;
+      if (softcap > 0.f) x[i] = softcap * tanhf(x[i] / softcap);
+      x[i] = live ? x[i] : kNegInf;
+      mx[i] = x[i];
+    }
+#pragma unroll
+    for (int o = 1; o < T; o <<= 1)
+#pragma unroll
+      for (int i = 0; i < GH; ++i) mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], o));
+#pragma unroll
+    for (int i = 0; i < GH; ++i) {
+      const float mn = fmaxf(m[i], mx[i]);
+      const float alpha = __expf(m[i] - mn);
+      const float p = live ? __expf(x[i] - mn) : 0.f;
+      m[i] = mn;
+      l[i] = l[i] * alpha + p;
+      const int g = hg + i * H;
+      if (g < G) {
+        pw[g * PS + t_lane] = p;
+        if (t_lane == 0) pw[g * PS + T] = alpha;
+      }
+    }
+    __syncwarp();
+    // acc = alpha acc + sum over the tile's positions of p V, a pair at a time
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+      if (j < np) {
+        const int pair = lane + 32 * j;
+        const int g = pair % G, w = min(pair / G, L - 1);  // a dead pair reads a live word
+        const float* pg = pw + g * PS;
+        const float a = pg[T];
+#pragma unroll
+        for (int e = 0; e < VE; ++e) acc[j][e] *= a;
+#pragma unroll
+        for (int t4 = 0; t4 < T; t4 += 4) {
+          const float4 p4 = *reinterpret_cast<const float4*>(pg + t4);
+          const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const uint4 vw = sv[(t4 + u) * RS + w];
+            float vf[VE];
+            Chunk<E>::load(vw, vf);
+#pragma unroll
+            for (int e = 0; e < VE; ++e) acc[j][e] = fmaf(pv[u], vf[e], acc[j][e]);
+          }
+        }
+      }
+    }
+    __syncwarp();  // every lane is done with this stage and p before they refill
+  }
+  cp_async_wait<0>();
+
+  // l over the T lanes of a head group
+#pragma unroll
+  for (int o = 1; o < T; o <<= 1)
+#pragma unroll
+    for (int i = 0; i < GH; ++i) l[i] += __shfl_xor_sync(0xffffffffu, l[i], o);
+  __syncthreads();  // the rings are free: reuse them for the warps' states
+  float* sm_m = reinterpret_cast<float*>(ring);  // [kWarps][G]
+  float* sm_l = sm_m + kWarps * G;               // [kWarps][G]
+  float* sm_acc = sm_l + kWarps * G;             // [kWarps][G][dh]
+  if (t_lane == 0) {
+#pragma unroll
+    for (int i = 0; i < GH; ++i) {
+      const int g = hg + i * H;
+      if (g < G) {
+        sm_m[warp * G + g] = m[i];
+        sm_l[warp * G + g] = l[i];
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NP; ++j) {
+    const int pair = lane + 32 * j;
+    if (j < np && pair < G * L) {
+      float* dst = sm_acc + (warp * G + pair % G) * dh + (pair / G) * VE;
+#pragma unroll
+      for (int e = 0; e < VE; ++e) dst[e] = acc[j][e];
+    }
+  }
+  __syncthreads();
+  // the warps' states merged into this split's partial, in a fixed order
+  const long long part = bh * gridDim.x + sp;
+  for (int i = threadIdx.x; i < G * dh; i += kThreads) {
+    const int g = i / dh;
+    float mm = kNegInf;
+    for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, sm_m[w * G + g]);
+    float a = 0.f;
+    for (int w = 0; w < kWarps; ++w) a += expf(sm_m[w * G + g] - mm) * sm_acc[w * G * dh + i];
+    pacc[part * G * dh + i] = a;
+  }
+  if (threadIdx.x < G) {
+    const int g = threadIdx.x;
+    float mm = kNegInf;
+    for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, sm_m[w * G + g]);
+    float ls = 0.f;
+    for (int w = 0; w < kWarps; ++w) ls += expf(sm_m[w * G + g] - mm) * sm_l[w * G + g];
+    pm[part * G + g] = mm;
+    pl[part * G + g] = ls;
+  }
+}
+
+// Dynamic shared memory of a launch: q, p, and the rings or the warps'
+// states, whichever is larger
+inline long long smem_bytes(int G, int dh, int L, int T) {
+  const long long state = 4LL * kWarps * G * (dh + 2);
+  const long long rings = ring_bytes(T, L);
+  return 4LL * G * q_stride(dh) + 4LL * kWarps * G * (T + 4) + (rings > state ? rings : state);
+}
+
+template <typename E, int G, int T>
+int launch_t(const float* q, const E* k, const E* v, const int* kv_len, float* pacc, float* pm,
+             float* pl, int B, int S, int KV, int dh, int chunk, int n_chunks, float softcap,
+             cudaStream_t stream) {
+  const int L = dh * (int)sizeof(E) / 16;
+  const long long smem = smem_bytes(G, dh, L, T);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  // The attributes belong to the current card: set once per card and
+  // instantiation, to the most any launch asks, before any graph capture
+  // (the wrapper enters the card).
+  static bool sized[kMaxCards] = {};
+  int card = 0;
+  cudaError_t e = cudaGetDevice(&card);
+  if (e != cudaSuccess) return (int)e;
+  if (card < 0 || card >= kMaxCards) return (int)cudaErrorInvalidDevice;
+  if (!sized[card]) {
+    e = cudaFuncSetAttribute(flash_decode_simt_kernel<E, G, T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(flash_decode_simt_kernel<E, G, T>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return (int)e;
+    sized[card] = true;
+  }
+  const float scale = 1.0f / sqrtf((float)dh);
+  flash_decode_simt_kernel<E, G, T><<<dim3(n_chunks, KV, B), kThreads, (size_t)smem, stream>>>(
+      q, k, v, kv_len, pacc, pm, pl, S, KV, dh, chunk, scale, softcap);
+  return (int)cudaGetLastError();
+}
+
+template <typename E, int G>
+int launch_g(const float* q, const E* k, const E* v, const int* kv_len, float* pacc, float* pm,
+             float* pl, int B, int S, int KV, int dh, int T, int chunk, int n_chunks,
+             float softcap, cudaStream_t stream) {
+  switch (T) {
+    case 32:
+      return launch_t<E, G, 32>(q, k, v, kv_len, pacc, pm, pl, B, S, KV, dh, chunk, n_chunks,
+                                softcap, stream);
+    case 16:
+      return launch_t<E, G, 16>(q, k, v, kv_len, pacc, pm, pl, B, S, KV, dh, chunk, n_chunks,
+                                softcap, stream);
+    case 8:
+      return launch_t<E, G, 8>(q, k, v, kv_len, pacc, pm, pl, B, S, KV, dh, chunk, n_chunks,
+                               softcap, stream);
+    case 4:
+      return launch_t<E, G, 4>(q, k, v, kv_len, pacc, pm, pl, B, S, KV, dh, chunk, n_chunks,
+                               softcap, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename E>
+int launch(const float* q, const E* k, const E* v, const int* kv_len, float* pacc, float* pm,
+           float* pl, float* out, float* out_m, float* out_l, int B, int S, int KV, int G, int dh,
+           int chunk, float softcap, int normalize, cudaStream_t stream) {
+  // L words of 16 bytes a row (dh <= 256: L <= 64); T positions a warp tile
+  const int row_bytes = dh * (int)sizeof(E);
+  const int L = row_bytes / 16;
+  if (row_bytes % 16 || L < 1 || dh > 256 || ((uintptr_t)k % 16) || ((uintptr_t)v % 16) ||
+      ((uintptr_t)q % 16))
+    return (int)cudaErrorInvalidValue;
+  const int T = tile_rows(L);
+  if (ring_bytes(T, L) > kRingBytes || chunk % (kWarps * T)) return (int)cudaErrorInvalidValue;
+  const int n_chunks = (S + chunk - 1) / chunk;
+  int e = cudaSuccess;
+  if (n_chunks > 0) switch (G) {
+#define FD_SIMT_CASE(n)                                                                        \
+  case n:                                                                                      \
+    e = launch_g<E, n>(q, k, v, kv_len, pacc, pm, pl, B, S, KV, dh, T, chunk, n_chunks, softcap, \
+                       stream);                                                                \
+    break;
+      FD_SIMT_CASE(1) FD_SIMT_CASE(2) FD_SIMT_CASE(3) FD_SIMT_CASE(4) FD_SIMT_CASE(5)
+      FD_SIMT_CASE(6) FD_SIMT_CASE(7) FD_SIMT_CASE(8)
+#undef FD_SIMT_CASE
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  if (e != cudaSuccess) return e;
+  flash_decode_merge_kernel<<<dim3(B * KV, G), kMergeThreads, 0, stream>>>(
+      pacc, pm, pl, kv_len, out, out_m, out_l, S, KV, G, dh, chunk, n_chunks, normalize);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace simt
+
 }  // namespace
 
-// q [B, KV, G, dh] f32; k, v [B, S, KV, dh] (bf16 when `bf16`, else f32);
-// kv_len [B] int32; dh <= 256 with rows of a multiple of 16 bytes; chunk
-// rows per block, a multiple of 4 * (4 / W) * 32 / P for the row's L =
-// dh * sizeof(element) / 16 words, P lanes a row and W words a lane (see
-// launch); scratch pacc [B, KV, n_chunks, G, dh],
-// pm / pl [B, KV, n_chunks, G] f32 with n_chunks = ceil(S / chunk); out [B, KV, G, dh] f32 (acc / l when `normalize`,
-// else acc with out_m / out_l [B, KV, G]).  softcap <= 0 means none.
+// Route "simt".  q [B, KV, G, dh] f32; k, v [B, S, KV, dh] (bf16 when
+// `bf16`, else f32); kv_len [B] int32; dh <= 256 with rows of a multiple of
+// 16 bytes; chunk rows per block, a multiple of 4 T for the row's T
+// positions a warp tile (simt::tile_rows); scratch pacc [B, KV, n_chunks,
+// G, dh], pm / pl [B, KV, n_chunks, G] f32 with n_chunks = ceil(S /
+// chunk); out [B, KV, G, dh] f32 (acc / l when `normalize`, else acc with
+// out_m / out_l [B, KV, G]).  softcap <= 0 means none.
 extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
                                    const void* kv_len, void* pacc, void* pm, void* pl, void* out,
                                    void* out_m, void* out_l, int B, int S, int KV, int G, int dh,
@@ -776,13 +927,15 @@ extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
   if (!normalize && (out_m == nullptr || out_l == nullptr)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (bf16)
-    return launch<__nv_bfloat16>((const float*)q, (const __nv_bfloat16*)k,
-                                 (const __nv_bfloat16*)v, (const int*)kv_len, (float*)pacc,
-                                 (float*)pm, (float*)pl, (float*)out, (float*)out_m,
-                                 (float*)out_l, B, S, KV, G, dh, chunk, softcap, normalize, st);
-  return launch<float>((const float*)q, (const float*)k, (const float*)v, (const int*)kv_len,
-                       (float*)pacc, (float*)pm, (float*)pl, (float*)out, (float*)out_m,
-                       (float*)out_l, B, S, KV, G, dh, chunk, softcap, normalize, st);
+    return simt::launch<__nv_bfloat16>((const float*)q, (const __nv_bfloat16*)k,
+                                       (const __nv_bfloat16*)v, (const int*)kv_len, (float*)pacc,
+                                       (float*)pm, (float*)pl, (float*)out, (float*)out_m,
+                                       (float*)out_l, B, S, KV, G, dh, chunk, softcap, normalize,
+                                       st);
+  return simt::launch<float>((const float*)q, (const float*)k, (const float*)v,
+                             (const int*)kv_len, (float*)pacc, (float*)pm, (float*)pl, (float*)out,
+                             (float*)out_m, (float*)out_l, B, S, KV, G, dh, chunk, softcap,
+                             normalize, st);
 }
 
 // Route "mma": the same arguments for bf16 k, v with dh a multiple of 16 in

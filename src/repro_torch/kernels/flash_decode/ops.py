@@ -20,8 +20,11 @@ from ..runtime import (check, check_operands, count_launch, cuda_input, kernel_f
                        launch_on, on_cpu, stream_ptr)
 from .ref import flash_decode_partial_ref, flash_decode_ref
 
-WARPS, ROWS_PER_LANE = 4, 4  # csrc/flash_decode.cu kWarps, kU (route "simt")
-CHUNK_ROWS = 512  # cache rows per block on route "simt" (about: whole block steps)
+WARPS = 4  # csrc/flash_decode.cu: warps a block (both routes)
+# cache rows per block on route "simt": a multiple of WARPS x 32, the most
+# rows a block step takes (simt::kMaxTile positions a warp tile), so every
+# tile size the kernel picks divides it
+CHUNK_ROWS = 1024
 MMA_TILE = 16  # csrc/flash_decode.cu tc::kTile: positions per warp step (route "mma")
 MMA_CHUNK_ROWS = 2048  # cache rows per block on route "mma" (whole block steps)
 
@@ -36,38 +39,20 @@ def route(dtype: torch.dtype, dh: int) -> str:
         raise TypeError(f"flash_decode: K/V must be f32 or bf16, got {dtype}")
     if dtype == torch.bfloat16 and dh % 16 == 0 and 16 <= dh <= 256:
         return "mma"
-    _row_words(dh, dtype)
-    return "simt"
-
-
-def _row_words(dh: int, dtype: torch.dtype) -> tuple[int, int, int]:
-    """How the "simt" kernel reads one K or V row, as ``launch`` in
-    csrc/flash_decode.cu works it out: (L, P, W), L in [1, 64] words of 16
-    bytes read by P lanes (the power of two at or above L, at most 32), W
-    words a lane.  The row must be a multiple of 16 bytes and dh at most 256."""
     row = dh * (2 if dtype == torch.bfloat16 else 4)
     if dh < 1 or row % 16 or dh > 256:
         raise ValueError(f"flash_decode: no kernel for dh={dh} in {dtype}: a row must "
                          "be a multiple of 16 bytes and dh at most 256")
-    words = row // 16
-    lanes = 1
-    while lanes < words and lanes < 32:
-        lanes <<= 1
-    return words, lanes, -(-words // 32)
+    return "simt"
 
 
 def _chunk_rows(dh: int, dtype: torch.dtype) -> int:
-    """Cache rows per block: whole block steps of the route's kernel, about
-    MMA_CHUNK_ROWS on "mma" (every warp takes tiles of MMA_TILE) and
-    CHUNK_ROWS on "simt" (every warp reads ROWS_PER_LANE / W rows of 32 / P
-    at a time, with :func:`_row_words`' P and W)."""
-    if route(dtype, dh) == "mma":
-        step, rows = WARPS * MMA_TILE, MMA_CHUNK_ROWS
-    else:
-        _, lanes, words = _row_words(dh, dtype)
-        step = WARPS * (ROWS_PER_LANE // words) * (32 // lanes)
-        rows = CHUNK_ROWS
-    return step * max(1, rows // step)
+    """Cache rows per block: CHUNK_ROWS on "simt", and on "mma" whole block
+    steps (every warp takes tiles of MMA_TILE) of about MMA_CHUNK_ROWS."""
+    if route(dtype, dh) == "simt":
+        return CHUNK_ROWS
+    step = WARPS * MMA_TILE
+    return step * max(1, MMA_CHUNK_ROWS // step)
 
 
 def _launch(q, k, v, kv_len, softcap, normalize: bool):

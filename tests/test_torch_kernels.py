@@ -484,21 +484,49 @@ def test_cpu_path_launches_nothing():
     assert before == after
 
 
+def simt_ring() -> tuple[int, int, int, int]:
+    """csrc/flash_decode.cu's "simt" staging constants: kStages,
+    kRingBytes, kMaxTile and kMinTile."""
+    import re
+
+    src = (SRC / "repro_torch" / "csrc" / "flash_decode.cu").read_text()
+    ring = re.search(r"constexpr int kStages = (\d+);[^\n]*\nconstexpr int kRingBytes = (\d+);",
+                     src)
+    tiles = re.search(r"constexpr int kMaxTile = (\d+), kMinTile = (\d+);", src)
+    return (*map(int, ring.groups()), *map(int, tiles.groups()))
+
+
+def simt_tile(dh: int, dtype: torch.dtype) -> tuple[int, int]:
+    """(L, T) of the "simt" kernel as ``simt::tile_rows`` picks them from
+    :func:`simt_ring`: a row of L 16-byte words, T positions a warp tile,
+    the largest power of two from kMaxTile down to kMinTile whose rings
+    (WARPS x kStages K and V tiles of T rows of L | 1 words) fit
+    kRingBytes."""
+    from repro_torch.kernels.flash_decode.ops import WARPS
+
+    stages, ring_bytes, max_tile, min_tile = simt_ring()
+    words, tile = dh * dtype.itemsize // 16, max_tile
+    while tile > min_tile and WARPS * stages * 2 * tile * (words | 1) * 16 > ring_bytes:
+        tile //= 2
+    return words, tile
+
+
 def test_flash_decode_kernel_shapes():
     """bf16 rows with dh a multiple of 16 (up to 256) take the tensor-core
     route, whole block steps of 2048 rows per block; the CUDA-core route
-    takes any row of L 16-byte words up to dh 256 (L <= 64), 512 rows per
-    block, and refuses the rest."""
-    from repro_torch.kernels.flash_decode.ops import _chunk_rows, _row_words, route
+    takes any row of L 16-byte words up to dh 256 (L <= 64), staged in warp
+    tiles of T positions (the largest of 32, 16, 8, 4 whose rings fit the
+    kernel's budget), 1024 rows per block, and refuses the rest."""
+    from repro_torch.kernels.flash_decode.ops import WARPS, _chunk_rows, route
 
-    # (L words of 16 bytes, P lanes a row, W words a lane)
-    assert _row_words(128, torch.bfloat16) == (16, 16, 1)
-    assert _row_words(128, torch.float32) == (32, 32, 1)
-    assert _row_words(16, torch.bfloat16) == (2, 2, 1)
-    assert _row_words(24, torch.bfloat16) == (3, 4, 1)
-    assert _row_words(144, torch.float32) == (36, 32, 2)
-    assert _row_words(80, torch.float32) == (20, 32, 1)
-    assert _row_words(256, torch.float32) == (64, 32, 2)
+    # (L words of 16 bytes, T positions a warp tile)
+    assert simt_tile(128, torch.bfloat16) == (16, 16)
+    assert simt_tile(128, torch.float32) == (32, 8)
+    assert simt_tile(16, torch.bfloat16) == (2, 32)
+    assert simt_tile(24, torch.bfloat16) == (3, 32)
+    assert simt_tile(144, torch.float32) == (36, 8)
+    assert simt_tile(80, torch.float32) == (20, 16)
+    assert simt_tile(256, torch.float32) == (64, 4)
     assert route(torch.bfloat16, 144) == "mma"
     for dh, dtype in ((272, torch.float32), (6, torch.float32), (12, torch.bfloat16)):
         with pytest.raises(ValueError, match="no kernel"):
@@ -506,9 +534,32 @@ def test_flash_decode_kernel_shapes():
     for dh, dtype in ((128, torch.float32), (8, torch.bfloat16), (4, torch.float32),
                       (80, torch.float32), (144, torch.float32), (256, torch.float32),
                       (24, torch.bfloat16)):
-        assert _chunk_rows(dh, dtype) == 512
+        assert _chunk_rows(dh, dtype) == 1024 and 1024 % (WARPS * simt_tile(dh, dtype)[1]) == 0
     for dh in (16, 64, 128, 144, 256):
         assert _chunk_rows(dh, torch.bfloat16) == 2048
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_decode_simt_staging_fits_every_width(dtype):
+    """At every width route "simt" takes, the kernel's tile T divides the
+    chunk ops.py passes and the launch's shared memory at G 8 (q rows of an
+    odd number of float4, p, then the rings or the warps' states, as
+    ``simt::smem_bytes`` adds them) fits a block's 232,448 bytes."""
+    from repro_torch.kernels.flash_decode.ops import CHUNK_ROWS, WARPS, _chunk_rows, route
+
+    step = 4 if dtype == torch.float32 else 8
+    widths = [dh for dh in range(step, 257, step) if route(dtype, dh) == "simt"]
+    assert len(widths) == (64 if dtype == torch.float32 else 16)
+    stages, ring_bytes, _, _ = simt_ring()
+    g = 8
+    for dh in widths:
+        words, tile = simt_tile(dh, dtype)
+        assert tile in (4, 8, 16, 32) and CHUNK_ROWS % (WARPS * tile) == 0
+        assert _chunk_rows(dh, dtype) == CHUNK_ROWS
+        rings = WARPS * stages * 2 * tile * (words | 1) * 16
+        state = 4 * WARPS * g * (dh + 2)
+        smem = 4 * g * 4 * ((dh // 4) | 1) + 4 * WARPS * g * (tile + 4) + max(rings, state)
+        assert rings <= ring_bytes and smem <= 232448, (dh, tile, smem)
 
 
 def test_flash_decode_route_is_a_function_of_dtype_and_dh():
@@ -931,6 +982,68 @@ class TestKernelsOnCard:
         assert flash_decode.launches == n0 + 1
         torch.testing.assert_close(got, flash_decode_ref(q, k, v, kv_len, softcap=cap),
                                    rtol=2e-4, atol=2e-5)
+
+    @staticmethod
+    def check_simt(q, k, v, kv_len, cap=None):
+        """Both forms of the "simt" kernel against their plain versions at
+        rtol 2e-4, atol 2e-5, one launch each."""
+        from repro_torch.kernels.flash_decode import route
+
+        assert route(k.dtype, q.shape[-1]) == "simt"
+        n0 = flash_decode.launches
+        got = flash_decode(q, k, v, kv_len, softcap=cap)
+        torch.cuda.synchronize()
+        assert flash_decode.launches == n0 + 1
+        torch.testing.assert_close(got, flash_decode_ref(q, k, v, kv_len, softcap=cap),
+                                   rtol=2e-4, atol=2e-5)
+        parts = flash_decode_partial(q, k, v, kv_len, softcap=cap)
+        torch.cuda.synchronize()
+        assert flash_decode.launches == n0 + 2
+        for g, w in zip(parts, flash_decode_partial_ref(q, k, v, kv_len, softcap=cap)):
+            torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-5)
+
+    @pytest.mark.parametrize("at", ["1", "T-1", "T", "T+1", "chunk-1", "chunk+1"])
+    @pytest.mark.parametrize("dtype,g,dh", [(torch.float32, 8, 80), (torch.float32, 2, 144),
+                                            (torch.float32, 3, 256), (torch.bfloat16, 4, 72)],
+                             ids=["f32-dh80", "f32-dh144", "f32-dh256", "bf16-dh72"])
+    def test_flash_decode_simt_tile_edges(self, dtype, g, dh, at):
+        """Live lengths at the edges of a warp tile (T positions, as
+        ``simt_tile`` works out the kernel's choice) and of a block's chunk:
+        the first sequence ends there, the second fills the cache."""
+        from repro_torch.kernels.flash_decode.ops import _chunk_rows
+
+        tile, chunk = simt_tile(dh, dtype)[1], _chunk_rows(dh, dtype)
+        n = {"1": 1, "T-1": tile - 1, "T": tile, "T+1": tile + 1, "chunk-1": chunk - 1,
+             "chunk+1": chunk + 1}[at]
+        s = chunk + 2 * tile
+        q, k, v, _ = (torch.from_numpy(a).cuda() for a in decode_inputs(2, s, 2, g, dh, seed=8))
+        kv_len = torch.tensor([n, s], dtype=torch.int32, device="cuda")
+        self.check_simt(q, k.to(dtype), v.to(dtype), kv_len)
+
+    @pytest.mark.parametrize("g", range(1, 9))
+    def test_flash_decode_simt_every_group(self, g):
+        """Every grouping G of 1-8 query heads a KV head at Qwen3-32B's f32
+        dh 80: head groups of a tile that hold fewer heads than others, and
+        (head, word) pairs past G L in the last lanes."""
+        q, k, v, kv_len = (torch.from_numpy(a).cuda()
+                           for a in decode_inputs(3, 1100, 2, g, 80, seed=9))
+        self.check_simt(q, k, v, kv_len)
+
+    @pytest.mark.parametrize("cap", [None, 50.0], ids=str)
+    @pytest.mark.parametrize("g,dh", [(8, 80), (2, 144), (3, 64)], ids=["dh80", "dh144", "dh64"])
+    def test_flash_decode_simt_large_q(self, g, dh, cap):
+        """f32 query heads of norm 30 (peaked scores: the running max moves
+        late and exp underflows) on the CUDA-core route."""
+        q, k, v, kv_len = (torch.from_numpy(a).cuda()
+                           for a in decode_inputs(2, 700, 2, g, dh, seed=6, q_norm=30.0))
+        self.check_simt(q, k, v, kv_len, cap)
+
+    @pytest.mark.parametrize("g,dh", [(4, 24), (8, 24), (2, 72), (8, 72)])
+    def test_flash_decode_simt_bf16_odd_widths_softcap(self, g, dh):
+        """bf16 rows of 3 and 9 16-byte words (dh 24, 72) with softcap 50."""
+        q, k, v, kv_len = (torch.from_numpy(a).cuda()
+                           for a in decode_inputs(2, 900, 2, g, dh, seed=10))
+        self.check_simt(q, k.to(torch.bfloat16), v.to(torch.bfloat16), kv_len, 50.0)
 
     @pytest.mark.parametrize("cap", [None, 50.0], ids=str)
     @pytest.mark.parametrize("dh", [64, 128, 144])
