@@ -6,8 +6,13 @@ version logic (the paper's decoupling).  Segment reductions become
 ``index_add_`` (sums) and ``scatter_reduce_`` (max / min, initialised with
 the reduction's identity so empty segments read as they do under
 ``jax.ops.segment_max``/``segment_min``); each ``while_loop`` is a Python
-loop that reads one convergence flag from the device per iteration, and
-the loop functions record their last iteration count in ``.iterations``.
+loop that reads one convergence flag from the device per iteration (a
+``device_wait`` span when tracing is on), and the loop functions record
+their last iteration count in ``.iterations``: an attribute of the
+function, so one per process, which every thread's call overwrites (a
+traced ``query`` span counts its own loop's waits, ``waits``).  Each
+view-level entry point records a ``query`` span
+(:func:`repro_torch.obs.trace.query_span`).
 TC implements the paper's hybrid set-intersection rule (merge when
 |N(v)|/|N(u)| < 10, probe otherwise, §6.5) on the host, with a device path
 through the CUDA ``intersect`` kernel for leaf-block views.
@@ -19,6 +24,7 @@ import numpy as np
 import torch
 
 from .arrays import sorted_unique
+from ..obs.trace import query_span
 from .distributed import make_bfs, make_pagerank, make_sssp, make_wcc
 from .shard_plane import active_plane
 
@@ -94,6 +100,7 @@ wcc_coo.iterations = 0
 # (``REPRO_DISABLE_SHARD_PLANE`` opts out) — see
 # :mod:`repro_torch.core.shard_plane` for the parity contract.
 # ---------------------------------------------------------------------------
+@query_span(route=active_plane)
 def pagerank_view(view, iters: int = 10, damping: float = 0.85) -> torch.Tensor:
     plane = active_plane(view)
     if plane is not None:
@@ -102,6 +109,7 @@ def pagerank_view(view, iters: int = 10, damping: float = 0.85) -> torch.Tensor:
     return pagerank_coo(src, dst, view.n_vertices, iters=iters, damping=damping)
 
 
+@query_span(route=active_plane)
 def bfs_view(view, root: int) -> torch.Tensor:
     plane = active_plane(view)
     if plane is not None:
@@ -110,6 +118,7 @@ def bfs_view(view, root: int) -> torch.Tensor:
     return bfs_coo(src, dst, view.n_vertices, root)
 
 
+@query_span(route=active_plane)
 def sssp_view(view, w, root: int) -> torch.Tensor:
     plane = active_plane(view)
     if plane is not None:
@@ -119,6 +128,7 @@ def sssp_view(view, w, root: int) -> torch.Tensor:
     return sssp_coo(src, dst, w, view.n_vertices, root)
 
 
+@query_span(route=active_plane)
 def wcc_view(view) -> torch.Tensor:
     """WCC over a directed view: both directions of the cached device COO
     propagate (under a shard plane, each shard's local edges)."""
@@ -129,6 +139,7 @@ def wcc_view(view) -> torch.Tensor:
     return wcc_coo(src, dst, view.n_vertices)
 
 
+@query_span()
 def triangle_count_view(view) -> int:
     """Triangle count over a snapshot view (store an undirected simple graph
     for exact counts), through the CUDA ``sum_intersect_tiles_view`` entry

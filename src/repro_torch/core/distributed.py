@@ -12,7 +12,13 @@ merged vector is copied back to each shard's device for the next
 iteration, a no-op when the shards share one card.  Frontier and rank
 vectors are replicated, edges stay on their shards, so what moves between
 devices per iteration is O(n_vertices), independent of the edge count.
-Loops read one convergence flag per iteration, after the merge.
+Loops read one convergence flag per iteration, after the merge.  Each
+place where the host blocks on the card records a ``device_wait`` span
+when tracing is on, so a query's host self time leaves the waits out:
+the flag reads (arg ``iter``), CUDA ``torch.bincount``, which reads its
+input's range back to size its output (``op`` ``bincount``), and BFS's
+and SSSP's root set from a host scalar, a copy that waits for the stream
+(``op`` ``root``).
 
 Across processes (``ranks``, a
 :class:`~repro_torch.launch.collectives.RankGroup`), the lists hold this
@@ -50,6 +56,7 @@ import numpy as np
 import torch
 
 from ..launch.collectives import merge, replicate
+from ..obs.trace import TRACER as _trc
 
 _I32_MIN = -(2**31)
 _I32_MAX = 2**31 - 1
@@ -110,6 +117,16 @@ def _segment_reduce(vals: torch.Tensor, key: torch.Tensor, n: int, op: str,
     return out.scatter_reduce_(0, key, vals, op, include_self=False)[:n]
 
 
+def _wait(flag: torch.Tensor, it: int) -> bool:
+    """``bool(flag)``: the host waits for the card, under a ``device_wait``
+    span (arg ``iter``) when tracing is on."""
+    frame = _trc.open()
+    out = bool(flag)
+    if frame:
+        _trc.close(frame, "device_wait", cat="read", args={"iter": it})
+    return out
+
+
 def _scatter_keys(ids, valids, n):
     return [x.long() if v is None else masked_key(x, v, n) for x, v in zip(ids, valids)]
 
@@ -137,8 +154,11 @@ def make_pagerank(n: int, iters: int = 10, damping: float = 0.85, pull: bool = F
     def pr(srcs, dsts, valids):
         devs = [s.device for s in srcs]
         skey = _scatter_keys(srcs, valids, n)
-        deg = merge([torch.bincount(k, minlength=n + 1)[:n].to(torch.float32)
-                     for k in skey], torch.add, ranks)
+        frame = _trc.open()
+        counts = [torch.bincount(k, minlength=n + 1) for k in skey]  # reads k's range back
+        if frame:
+            _trc.close(frame, "device_wait", cat="read", args={"op": "bincount"})
+        deg = merge([c[:n].to(torch.float32) for c in counts], torch.add, ranks)
         inv_deg = torch.where(deg > 0, 1.0 / torch.clamp(deg, min=1.0), 0.0)
         p = torch.full((n,), 1.0 / n, dtype=torch.float32, device=deg.device)
         if pull:
@@ -167,11 +187,14 @@ def make_bfs(n: int, ranks=None):
         dkey, gsrc = _scatter_keys(dsts, valids, n), _gather_indices(srcs, valids)
         home = devs[0]
         level = torch.full((n,), -1, dtype=torch.int32, device=home)
-        level[root] = 0
         frontier = torch.zeros(n, dtype=torch.bool, device=home)
+        frame = _trc.open()
+        level[root] = 0  # each a host scalar copied in: the host waits for the stream
         frontier[root] = True
+        if frame:
+            _trc.close(frame, "device_wait", cat="read", args={"op": "root"})
         d = 0
-        while bool(frontier.any()):
+        while _wait(frontier.any(), d):
             fr = replicate(frontier, devs)
             hit = merge([_segment_reduce(_live(v, f[g], False).to(torch.int32), k, n,
                                          "amax", _I32_MIN)
@@ -198,7 +221,10 @@ def make_sssp(n: int, ranks=None):
         devs = [s.device for s in srcs]
         dkey, gsrc = _scatter_keys(dsts, valids, n), _gather_indices(srcs, valids)
         dist = torch.full((n,), inf, dtype=torch.float32, device=devs[0])
-        dist[root] = 0.0
+        frame = _trc.open()
+        dist[root] = 0.0  # a host scalar copied in: the host waits for the stream
+        if frame:
+            _trc.close(frame, "device_wait", cat="read", args={"op": "root"})
         changed, it = True, 0
         while changed and it < n:
             dd = replicate(dist, devs)
@@ -206,7 +232,7 @@ def make_sssp(n: int, ranks=None):
                           for x, v, g, w, k in zip(dd, valids, gsrc, ws, dkey)],
                          torch.minimum, ranks)
             new = torch.minimum(dist, cand)
-            changed = bool((new < dist).any())
+            changed = _wait((new < dist).any(), it)
             dist, it = new, it + 1
         sssp.iterations = it
         return dist
@@ -237,7 +263,7 @@ def make_wcc(n: int, ranks=None):
                 parts.append(torch.minimum(fwd, bwd))
             new = torch.minimum(labels, merge(parts, torch.minimum, ranks))
             new = new[new.long()]  # pointer-jump (path halving)
-            changed = bool((new != labels).any())
+            changed = _wait((new != labels).any(), it)
             labels, it = new, it + 1
         wcc.iterations = it
         return labels

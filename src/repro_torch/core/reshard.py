@@ -23,8 +23,9 @@ operators scrape:
 - ``pipeline_queue_depth{shard=k}``: write-pipeline backlog (a hot writer
   shard is also a hot reader shard under the store's workloads);
 - ``shard_plane_uploads{shard=k}`` / ``ShardPlaneStats`` per-shard upload
-  and compute counters, plus ``kernel_dispatch`` span rates when tracing is
-  live, for diagnostics in the plan's ``reason``.
+  and compute counters (``collective_calls`` among them), for diagnostics
+  in the plan's ``reason``; with tracing on, each query the plane serves
+  records a ``query`` span with ``route`` ``plane`` and ``n_shards``.
 
 Migration-epoch lifecycle
 -------------------------

@@ -145,7 +145,6 @@ from typing import Callable, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from ..obs.trace import TRACER as _trc
 from .hooks import RESHARD_HOOKS
 from .leaf_pool import SENTINEL
 
@@ -915,17 +914,12 @@ class ShardPlane:
         return self._sharded_kind(view, "blocks")
 
     # -- collectives ---------------------------------------------------------
-    def _dispatch(self, kernel: str, fn: Callable, *args):
-        """Run one collective under a ``kernel_dispatch`` span whose
-        ``kernel`` arg names it."""
+    def _dispatch(self, fn: Callable, *args):
+        """Run one collective, counted in ``stats.collective_calls`` (the
+        entry point's ``query`` span covers it, with ``n_shards``)."""
         with self._lock:
             self.stats.collective_calls += 1
-        tok = _trc.begin()
-        out = fn(*args)
-        if tok:
-            _trc.end(tok, "kernel_dispatch", cat="read",
-                     args={"kernel": kernel, "n_shards": self.n_shards})
-        return out
+        return fn(*args)
 
     @staticmethod
     def _coo_lists(coo: ShardedKind) -> tuple:
@@ -952,7 +946,7 @@ class ShardPlane:
         pull = self.symmetric if pull is None else bool(pull)
         fn = distributed.make_pagerank(view.n_vertices, iters=iters, damping=damping,
                                        pull=pull, ranks=self.ranks)
-        return self._dispatch("pagerank", fn, *self._coo_lists(coo))
+        return self._dispatch(fn, *self._coo_lists(coo))
 
     def bfs(self, view, root: int):
         """Collective level-synchronous BFS (bitwise-equal to ``bfs_view``)."""
@@ -960,7 +954,7 @@ class ShardPlane:
 
         coo = self.sharded_coo(view)
         fn = distributed.make_bfs(view.n_vertices, ranks=self.ranks)
-        return self._dispatch("bfs", fn, *self._coo_lists(coo), int(root))
+        return self._dispatch(fn, *self._coo_lists(coo), int(root))
 
     def _shard_edge_operand(self, coo: ShardedKind, w) -> list:
         """Slice a per-edge operand (global COO order) onto the shards.
@@ -1004,7 +998,7 @@ class ShardPlane:
         ws = self._shard_edge_operand(coo, w)
         fn = distributed.make_sssp(view.n_vertices, ranks=self.ranks)
         srcs, dsts, valids = self._coo_lists(coo)
-        return self._dispatch("sssp", fn, srcs, dsts, valids, ws, int(root))
+        return self._dispatch(fn, srcs, dsts, valids, ws, int(root))
 
     def wcc(self, view):
         """Collective WCC: both edge directions propagate locally, the
@@ -1013,7 +1007,7 @@ class ShardPlane:
 
         coo = self.sharded_coo(view)
         fn = distributed.make_wcc(view.n_vertices, ranks=self.ranks)
-        return self._dispatch("wcc", fn, *self._coo_lists(coo))
+        return self._dispatch(fn, *self._coo_lists(coo))
 
     def spmm(self, view, h):
         """Collective per-vertex SpMM over pinned leaf tiles.
@@ -1046,7 +1040,7 @@ class ShardPlane:
                 out.index_add_(0, src.to(home), y.to(home))
             return merge([out], torch.add, self.ranks)  # other ranks add zeros
 
-        return self._dispatch("spmm", run)
+        return self._dispatch(run)
 
 
 __all__ = [

@@ -212,11 +212,14 @@ class SnapshotView:
     required, so that no view lands on the host unless a caller asks.
     ``plane`` is the store's :class:`~repro_torch.core.shard_plane.ShardPlane`
     when one is attached: the view's collective analytics route through it.
+    ``read_id`` is the id :meth:`RapidStore.begin_read` gave the read that
+    pinned the view (0 where none did): the spans of its queries and
+    assemblies carry it as ``read``.
     """
 
     __slots__ = (
         "ts", "p", "snaps", "n_vertices", "B", "assembly", "_pred", "_lineage",
-        "_plane", "_base", "device",
+        "_plane", "_base", "device", "read_id",
     )
 
     def __init__(
@@ -232,6 +235,7 @@ class SnapshotView:
         base=None,
         *,
         device,
+        read_id: int = 0,
     ):
         self.ts = ts
         self.p = p
@@ -244,6 +248,7 @@ class SnapshotView:
         self._plane = plane  # ShardPlane routing collective analytics, or None
         self._base = base  # STRONG ref to the compactor's frozen base bundle
         self.device = indexed(device)
+        self.read_id = read_id  # the store's id of the read that pinned it (0: none)
 
     # -- point reads ------------------------------------------------------------
     def _local(self, u: int) -> Tuple[SubgraphSnapshot, int]:

@@ -51,6 +51,7 @@ from .version_chain import CommitLineage, VersionChain
 from . import txn as _txn
 from ..obs import metrics as _metrics
 from ..obs.trace import TRACER as _trc
+from ..obs.trace import new_id as _new_read_id
 
 
 class StoreStats(dict):
@@ -95,6 +96,7 @@ class ReadHandle:
     ts: int
     view: SnapshotView
     trace_token: int = 0
+    read_id: int = 0  # also ``view.read_id``: joins the read's spans
 
 
 def _resolve_device(device) -> torch.device:
@@ -404,7 +406,12 @@ class RapidStore:
         handle, so its materializers can splice only the subgraphs dirtied
         between the two timestamps (delta plane) instead of re-concatenating
         all S.  Weak linkage keeps GC free to reclaim superseded bundles.
+
+        Each read gets an id (``handle.read_id``, ``view.read_id``); with
+        tracing on, a ``pin`` span covers this call and the ``read`` span
+        (to :meth:`end_read`) is the root of the read's spans.
         """
+        rid = _new_read_id()
         token = _trc.begin()
         t = self.clock.read_timestamp()
         slot = self.tracer.register(t)
@@ -423,16 +430,21 @@ class RapidStore:
             plane=self.shard_plane,
             base=self._base_assembly,
             device=self.device,
+            read_id=rid,
         )
         self.stats.add("reads_begun")
-        return ReadHandle(slot=slot, ts=t, view=view, trace_token=token)
+        if token:
+            _trc.end(token, "pin", cat="read", ts=t,
+                     args={"ts": t, "chains": len(self.chains)}, read=rid)
+        return ReadHandle(slot=slot, ts=t, view=view, trace_token=token, read_id=rid)
 
     def end_read(self, handle: ReadHandle) -> None:
         self.tracer.unregister(handle.slot)
         self._retire_view(handle.view)
         self.stats.add("reads_ended")
         if handle.trace_token:
-            _trc.end(handle.trace_token, "read", cat="read", ts=handle.ts)
+            _trc.end(handle.trace_token, "read", cat="read", ts=handle.ts,
+                     read=handle.read_id, root=True)
             self._h_read.observe(
                 (time.perf_counter_ns() - handle.trace_token) / 1e9
             )

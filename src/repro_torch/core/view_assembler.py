@@ -54,7 +54,6 @@ by tests and benchmarks.
 
 from __future__ import annotations
 
-import functools
 import os
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -64,6 +63,7 @@ import torch
 
 from ..obs import metrics as _metrics
 from ..obs.trace import TRACER as _trc
+from ..obs.trace import traced
 
 
 # ---------------------------------------------------------------------------
@@ -123,33 +123,47 @@ class AssemblyStats:
 stats = AssemblyStats()
 
 
+# the counters that say which path an assembly took, by the name of the path
+_PATHS = {"reuses": "reuse", "splices": "splice", "base_splices": "base_splice",
+          "full_concats": "full_concat"}
+
+
 def _count(**kw: int) -> None:
     for k, v in kw.items():
         stats.add(k, v)
+    if _trc.enabled:
+        _note_path(kw)
+
+
+def _note_path(kw) -> None:
+    """Name the path on the innermost open ``assemble`` span: the last path
+    counter moved, except that a splice or reuse from the base bundle stays
+    ``base_splice``."""
+    frame = _trc.current()
+    if frame is None:
+        return
+    for k in kw:
+        path = _PATHS.get(k)
+        if path is not None and not (frame.note == "base_splice"
+                                     and path in ("splice", "reuse")):
+            frame.note = path
 
 
 def _traced(kind: str):
     """Record an ``assemble`` span (cat ``read``) around a materializer.
 
     The span carries the view timestamp, so a read's assembly cost lines
-    up with the commit that dirtied it in the Perfetto timeline; which
-    path it took (splice / base splice / full concat / reuse) is visible
-    in the ``assembler_*`` counters.
+    up with the commit that dirtied it in the Perfetto timeline, and in
+    its args the view's ``read`` and the ``path`` it took (``reuse``,
+    ``splice``, ``base_splice`` or ``full_concat``: the ``AssemblyStats``
+    counter that the call moved; no ``path`` where the view's own bundle
+    already held the result and no counter moved).
     """
 
-    def deco(fn):
-        @functools.wraps(fn)
-        def wrapper(view, *args, **kwargs):
-            tok = _trc.begin()
-            out = fn(view, *args, **kwargs)
-            if tok:
-                _trc.end(tok, "assemble", cat="read", ts=view.ts,
-                         args={"kind": kind})
-            return out
+    def args(_fn, _view, frame):
+        return {"kind": kind} if frame.note is None else {"kind": kind, "path": frame.note}
 
-        return wrapper
-
-    return deco
+    return traced("assemble", args)
 
 
 def splice_enabled() -> bool:

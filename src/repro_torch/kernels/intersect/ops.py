@@ -7,6 +7,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...obs.trace import query_span
 from ..runtime import (check, check_operands, count_launch, cuda_input, kernel_fn,
                        launch_on, on_cpu, stream_ptr)
 from .ref import SENTINEL, intersect_count_ref
@@ -95,6 +96,7 @@ def _pair_index(ia, ib, device) -> torch.Tensor:
     return torch.from_numpy(np.stack([ia, ib]).astype(np.int32)).to(device)
 
 
+@query_span()
 def intersect_tiles_view(view, idx_a, idx_b) -> torch.Tensor:
     """|tile_a ∩ tile_b| for pairs of a view's device-resident leaf tiles.
 
@@ -146,6 +148,7 @@ def _intersect_tiles_tiered(view, dev, idx_a, idx_b) -> torch.Tensor:
     return out
 
 
+@query_span()
 def sum_intersect_tiles_view(view, idx_a, idx_b, batch: int = SUM_BATCH) -> int:
     """Sum of |tile_a ∩ tile_b| over many tile pairs, batched on device.
 

@@ -6,6 +6,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...obs.trace import query_span
 from ..runtime import (check, check_operands, count_launch, cuda_input, kernel_fn,
                        launch_on, on_cpu, stream_ptr)
 from .ref import leaf_search_ref
@@ -114,6 +115,7 @@ def search_tiles(view, vs, qidx, flat, n_queries: int) -> torch.Tensor:
     return hits > 0
 
 
+@query_span()
 def edge_search_view(view, us, vs) -> np.ndarray:
     """Batched edge-membership Search(u, v) through the device tile cache.
 

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 
+from ...obs.trace import query_span
 from ..runtime import (check, check_operands, count_launch, cuda_input, kernel_fn,
                        launch_on, on_cpu, stream_ptr)
 from .ref import leaf_scan_reduce_ref, leaf_spmm_ref
@@ -112,6 +113,7 @@ def _scatter_rows(out: torch.Tensor, gidx, y: torch.Tensor) -> None:
     out[torch.from_numpy(gidx).to(out.device)] = y
 
 
+@query_span()
 def leaf_scan_reduce_view(view, x) -> torch.Tensor:
     """Per-tile scan-reduce over a view's device-resident leaf blocks, each
     tile read over its live prefix (the blocks' ``length`` column).
@@ -134,6 +136,7 @@ def leaf_scan_reduce_view(view, x) -> torch.Tensor:
     return out
 
 
+@query_span()
 def leaf_spmm_view(view, h) -> torch.Tensor:
     """Per-tile SpMM (GNN messages) over device-resident leaf blocks, each
     tile read over its live prefix (the blocks' ``length`` column).
@@ -153,6 +156,13 @@ def leaf_spmm_view(view, h) -> torch.Tensor:
     return out
 
 
+def _active_plane(view):
+    from ...core.shard_plane import active_plane
+
+    return active_plane(view)
+
+
+@query_span(route=_active_plane)
 def spmm_view(view, h) -> torch.Tensor:
     """Per-vertex aggregated SpMM: ``Y[u] = sum_{v in N(u)} H[v]``.
 
@@ -168,9 +178,7 @@ def spmm_view(view, h) -> torch.Tensor:
     vertex's tiles in this order (every source vertex lives on one shard);
     see :mod:`repro_torch.core.shard_plane`.
     """
-    from ...core.shard_plane import active_plane
-
-    plane = active_plane(view)
+    plane = _active_plane(view)
     if plane is not None:
         return plane.spmm(view, h)
     blocks = view.to_leaf_blocks_device()

@@ -10,7 +10,11 @@ Three consumers of the same telemetry plane:
   as Chrome trace-event JSON (``ph: "X"`` complete events,
   microsecond timestamps) — load the file in Perfetto
   (https://ui.perfetto.dev) or ``chrome://tracing``.  Span ``ts``
-  (commit/view timestamp) and args ride along in ``args``.
+  (commit/view timestamp) and args (``id``, ``parent``, ``read``) ride
+  along in ``args``.  ``clock="profiler"`` writes them on the clock of
+  ``torch.profiler``'s events; ``write_chrome_trace(path, beside=f)``
+  writes the spans into a copy of ``prof.export_chrome_trace(f)``'s file,
+  so one Perfetto timeline shows a span over the kernels it launched.
 - :func:`telemetry_report` is the human-readable store summary behind
   ``RapidStore.telemetry_report()``: counters, evaluated derived
   gauges, histogram p50/p99/max, and span counts.
@@ -23,7 +27,7 @@ import re
 from typing import Iterable, List
 
 from .metrics import REGISTRY, Counter, Gauge, Histogram, MetricsRegistry
-from .trace import TRACER, Tracer
+from .trace import TRACER, Tracer, clock_anchor
 
 _PREFIX = "rapidstore_"
 _NAME_RE = re.compile(r"[^a-zA-Z0-9_:]")
@@ -90,8 +94,22 @@ def prometheus_text(*registries: MetricsRegistry) -> str:
 # ---------------------------------------------------------------------------
 # Chrome trace-event JSON (Perfetto-loadable)
 # ---------------------------------------------------------------------------
-def chrome_trace(tracer: Tracer = TRACER) -> dict:
-    """The span ring as a Chrome trace-event dict (``json.dump``-ready)."""
+def chrome_trace(tracer: Tracer = TRACER, clock: str = "host", base_ns: int = 0) -> dict:
+    """The span ring as a Chrome trace-event dict (``json.dump``-ready).
+
+    ``clock="host"``: timestamps are ``perf_counter`` microseconds.
+    ``clock="profiler"``: each span start ``s`` (perf ns) is written as
+    ``(s + profiler_ns - perf_ns - base_ns) / 1000`` us, with ``(perf_ns,
+    profiler_ns)`` read by :func:`clock_anchor` now and
+    ``base_ns`` the ``baseTimeNanoseconds`` that the profiler's own export
+    subtracts from its events (written into the dict when not 0)."""
+    if clock == "host":
+        shift = 0
+    elif clock == "profiler":
+        perf_ns, prof_ns = clock_anchor()
+        shift = prof_ns - perf_ns - int(base_ns)
+    else:
+        raise ValueError(f"clock must be 'host' or 'profiler', not {clock!r}")
     events = []
     for sp in tracer.spans():
         args = dict(sp.args) if sp.args else {}
@@ -102,20 +120,35 @@ def chrome_trace(tracer: Tracer = TRACER) -> dict:
                 "name": sp.name,
                 "cat": sp.cat,
                 "ph": "X",
-                "ts": sp.start_ns / 1e3,  # trace-event timestamps are us
+                "ts": (sp.start_ns + shift) / 1e3,  # trace-event timestamps are us
                 "dur": sp.dur_ns / 1e3,
                 "pid": 1,
                 "tid": sp.tid % (1 << 31),  # Perfetto wants an int32
                 "args": args,
             }
         )
-    return {"traceEvents": events, "displayTimeUnit": "ms"}
+    out = {"traceEvents": events, "displayTimeUnit": "ms"}
+    if clock == "profiler" and base_ns:
+        out["baseTimeNanoseconds"] = int(base_ns)
+    return out
 
 
-def write_chrome_trace(path, tracer: Tracer = TRACER) -> str:
-    """Dump :func:`chrome_trace` to ``path``; returns the path."""
+def write_chrome_trace(path, tracer: Tracer = TRACER, beside=None) -> str:
+    """Dump :func:`chrome_trace` to ``path``; returns the path.
+
+    ``beside`` names a file that ``prof.export_chrome_trace`` wrote: its
+    events are copied to ``path`` with the spans added on the profiler's
+    clock and its ``baseTimeNanoseconds``."""
+    if beside is None:
+        out = chrome_trace(tracer)
+    else:
+        with open(beside) as f:
+            out = json.load(f)
+        base = int(out.get("baseTimeNanoseconds", 0))
+        out["traceEvents"] = list(out.get("traceEvents", [])) + chrome_trace(
+            tracer, clock="profiler", base_ns=base)["traceEvents"]
     with open(path, "w") as f:
-        json.dump(chrome_trace(tracer), f)
+        json.dump(out, f)
     return str(path)
 
 
