@@ -1,10 +1,14 @@
 """Graph analytics over snapshot views (paper §7 workloads, GAPBS-style).
 
-PR / BFS / SSSP / WCC run as plain torch programs over the view's COO
-tensors on ``view.device`` — the compiled kernels underneath contain zero
-version logic (the paper's decoupling).  Segment reductions become
-``index_add_`` (sums) and ``scatter_reduce_`` (max / min, initialised with
-the reduction's identity so empty segments read as they do under
+PR / BFS / SSSP / WCC run as torch programs over the view's COO tensors
+on ``view.device`` — the kernels underneath contain zero version logic
+(the paper's decoupling).  PageRank's segment sum is ``index_add_``.  The
+relax step of BFS, SSSP and WCC is
+:func:`repro_torch.kernels.relax.edge_relax` (see
+:mod:`repro_torch.core.distributed`): on a card one hand-written kernel
+an iteration over the int32 COO, on the CPU gathers and
+``scatter_reduce_`` (max / min, initialised with the reduction's identity
+so empty segments read as they do under
 ``jax.ops.segment_max``/``segment_min``); each ``while_loop`` is a Python
 loop that reads one convergence flag from the device per iteration (a
 ``device_wait`` span when tracing is on), and the loop functions record

@@ -12,6 +12,16 @@ merged vector is copied back to each shard's device for the next
 iteration, a no-op when the shards share one card.  Frontier and rank
 vectors are replicated, edges stay on their shards, so what moves between
 devices per iteration is O(n_vertices), independent of the edge count.
+
+A shard's step is a segment reduction over its edges.  PageRank's sum is
+``index_add_`` on every device.  The relax of BFS (max of the frontier
+flag), SSSP (min of distance plus weight) and WCC (min of the
+neighbours' labels, both directions) is
+:func:`repro_torch.kernels.relax.edge_relax`: on a card one hand-written
+kernel a shard and an iteration, which reads the int32 ids in place; on
+the CPU its plain version, gathers and ``scatter_reduce_`` into an output
+filled with the reduction's identity.  Either way min and max merges are
+exact, so every sharding, and either route, gives the same bits.
 Loops read one convergence flag per iteration, after the merge.  Each
 place where the host blocks on the card records a ``device_wait`` span
 when tracing is on, so a query's host self time leaves the waits out:
@@ -33,15 +43,17 @@ Padding contract
 pad slots are marked in the returned ``valid`` mask.  Every function here
 takes a ``valid`` per shard — ``None`` only for a shard without pad slots,
 as the single-device functions of :mod:`repro_torch.core.analytics` pass
-for their one shard — and applies it twice: a pad slot's
+for their one shard.  The torch reductions apply it twice: a pad slot's
 contribution is zeroed / identity-filled on the gather side (its gather
 index is routed to 0, so ids out of range such as the shard plane's
 SENTINEL pads never fault) AND its scatter key is routed to the extra slot
 ``n`` of an ``n + 1`` output that is sliced off (:func:`masked_key`), so a
 padded slot can never contribute to vertex 0 even if a value sneaks past
-the first mask.  An unmasked pad slot would silently inflate vertex 0's
-degree / rank / distance — ``tests/test_torch_shard_plane.py::
-test_shard_padding_masked`` guards exactly that.
+the first mask.  The relax kernel skips a pad slot, and any edge with an
+id outside ``[0, n)``, before it reads either end.  An unmasked pad slot
+would silently inflate vertex 0's degree / rank / distance —
+``tests/test_torch_shard_plane.py::test_shard_padding_masked`` guards
+exactly that.
 
 This module is also the reference for the shard-plane collectives
 (:mod:`repro_torch.core.shard_plane` reads pinned per-shard tiles instead
@@ -55,11 +67,10 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..kernels.relax import edge_relax
+from ..kernels.relax.ref import gather_ids, live as _live, masked_key, scatter_key
 from ..launch.collectives import merge, replicate
 from ..obs.trace import TRACER as _trc
-
-_I32_MIN = -(2**31)
-_I32_MAX = 2**31 - 1
 
 
 def shard_edges(
@@ -85,36 +96,10 @@ def shard_edges(
     )
 
 
-def masked_key(key: torch.Tensor, valid: torch.Tensor, n: int) -> torch.Tensor:
-    """int64 scatter key with pad slots routed to ``n``: the extra slot of
-    an ``n + 1`` output, sliced off after the reduction (torch's scatter
-    ops fault on ids out of range instead of dropping them)."""
-    return torch.where(valid, key.long(), n)
-
-
-def _gather_index(idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """int64 gather index with pad slots routed to vertex 0 (their gathered
-    value is masked out again before any reduction)."""
-    return torch.where(valid, idx.long(), 0)
-
-
-def _live(valid, x: torch.Tensor, fill) -> torch.Tensor:
-    """``x`` with pad slots set to ``fill`` (``valid`` None: no pad slots)."""
-    return x if valid is None else torch.where(valid, x, fill)
-
-
 def _segment_sum(vals: torch.Tensor, key: torch.Tensor, n: int) -> torch.Tensor:
     out = torch.zeros((n + 1,) + tuple(vals.shape[1:]), dtype=vals.dtype,
                       device=vals.device)
     return out.index_add_(0, key, vals)[:n]
-
-
-def _segment_reduce(vals: torch.Tensor, key: torch.Tensor, n: int, op: str,
-                    identity) -> torch.Tensor:
-    """``op`` ("amax"/"amin") per segment; empty segments read ``identity``,
-    as under ``jax.ops.segment_max``/``segment_min``."""
-    out = torch.full((n + 1,), identity, dtype=vals.dtype, device=vals.device)
-    return out.scatter_reduce_(0, key, vals, op, include_self=False)[:n]
 
 
 def _wait(flag: torch.Tensor, it: int) -> bool:
@@ -128,11 +113,11 @@ def _wait(flag: torch.Tensor, it: int) -> bool:
 
 
 def _scatter_keys(ids, valids, n):
-    return [x.long() if v is None else masked_key(x, v, n) for x, v in zip(ids, valids)]
+    return [scatter_key(x, v, n) for x, v in zip(ids, valids)]
 
 
 def _gather_indices(ids, valids):
-    return [x.long() if v is None else _gather_index(x, v) for x, v in zip(ids, valids)]
+    return [gather_ids(x, v) for x, v in zip(ids, valids)]
 
 
 def make_pagerank(n: int, iters: int = 10, damping: float = 0.85, pull: bool = False,
@@ -184,7 +169,6 @@ def make_bfs(n: int, ranks=None):
 
     def bfs(srcs, dsts, valids, root: int):
         devs = [s.device for s in srcs]
-        dkey, gsrc = _scatter_keys(dsts, valids, n), _gather_indices(srcs, valids)
         home = devs[0]
         level = torch.full((n,), -1, dtype=torch.int32, device=home)
         frontier = torch.zeros(n, dtype=torch.bool, device=home)
@@ -196,10 +180,8 @@ def make_bfs(n: int, ranks=None):
         d = 0
         while _wait(frontier.any(), d):
             fr = replicate(frontier, devs)
-            hit = merge([_segment_reduce(_live(v, f[g], False).to(torch.int32), k, n,
-                                         "amax", _I32_MIN)
-                         for f, v, g, k in zip(fr, valids, gsrc, dkey)], torch.maximum,
-                        ranks)
+            hit = merge([edge_relax("flag", f, s, t, v)
+                         for f, s, t, v in zip(fr, srcs, dsts, valids)], torch.maximum, ranks)
             frontier = (hit > 0) & (level < 0)
             level = torch.where(frontier, d + 1, level)
             d += 1
@@ -219,7 +201,6 @@ def make_sssp(n: int, ranks=None):
 
     def sssp(srcs, dsts, valids, ws, root: int):
         devs = [s.device for s in srcs]
-        dkey, gsrc = _scatter_keys(dsts, valids, n), _gather_indices(srcs, valids)
         dist = torch.full((n,), inf, dtype=torch.float32, device=devs[0])
         frame = _trc.open()
         dist[root] = 0.0  # a host scalar copied in: the host waits for the stream
@@ -228,8 +209,8 @@ def make_sssp(n: int, ranks=None):
         changed, it = True, 0
         while changed and it < n:
             dd = replicate(dist, devs)
-            cand = merge([_segment_reduce(_live(v, x[g] + w, inf), k, n, "amin", inf)
-                          for x, v, g, w, k in zip(dd, valids, gsrc, ws, dkey)],
+            cand = merge([edge_relax("min_plus", x, s, t, v, w)
+                          for x, s, t, v, w in zip(dd, srcs, dsts, valids, ws)],
                          torch.minimum, ranks)
             new = torch.minimum(dist, cand)
             changed = _wait((new < dist).any(), it)
@@ -250,17 +231,12 @@ def make_wcc(n: int, ranks=None):
 
     def wcc(srcs, dsts, valids):
         devs = [s.device for s in srcs]
-        skey, dkey = _scatter_keys(srcs, valids, n), _scatter_keys(dsts, valids, n)
-        gsrc, gdst = _gather_indices(srcs, valids), _gather_indices(dsts, valids)
         labels = torch.arange(n, dtype=torch.int32, device=devs[0])
         changed, it = True, 0
         while changed:
             lab = replicate(labels, devs)
-            parts = []
-            for x, v, gs, gd, sk, dk in zip(lab, valids, gsrc, gdst, skey, dkey):
-                fwd = _segment_reduce(_live(v, x[gs], _I32_MAX), dk, n, "amin", _I32_MAX)
-                bwd = _segment_reduce(_live(v, x[gd], _I32_MAX), sk, n, "amin", _I32_MAX)
-                parts.append(torch.minimum(fwd, bwd))
+            parts = [edge_relax("min_both", x, s, t, v)
+                     for x, s, t, v in zip(lab, srcs, dsts, valids)]
             new = torch.minimum(labels, merge(parts, torch.minimum, ranks))
             new = new[new.long()]  # pointer-jump (path halving)
             changed = _wait((new != labels).any(), it)

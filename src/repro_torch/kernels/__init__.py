@@ -11,6 +11,8 @@ Inventory (paper hot spot -> kernel):
 
 - Search(u, v) probes           -> ``leaf_search``
 - Scan-heavy analytics (PR/GNN) -> ``spmm`` (``leaf_scan_reduce``, ``leaf_spmm``)
+- BFS / SSSP / WCC relax steps  -> ``relax`` (``edge_relax``; no TPU kernel:
+  the JAX package leaves these segment reductions to XLA)
 - set intersection / TC (§6.2)  -> ``intersect`` (``intersect_count``)
 - BST item-table lookups        -> ``embedding_bag``
 - LM decode attention           -> ``flash_decode`` (with its partial form

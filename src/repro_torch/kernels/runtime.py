@@ -7,10 +7,12 @@
   the host.
 - :func:`kernel_lib` — the hand-written kernels in ``csrc/*.cu`` are built
   with ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the repository
-  root on first use (one ``nvcc`` per source, all started together), keyed
-  by a hash of the sources and flags, and loaded with ``ctypes``.  Each
-  source exports plain C launch functions that return the ``cudaError_t``
-  of the launch; :func:`check` raises on a non-zero one.
+  root on first use, keyed by a hash of the source and flags, and loaded
+  with ``ctypes``: :func:`kernel_lib` builds the one source it is asked
+  for, :func:`build_all` every source (one ``nvcc`` each, all started
+  together).  Each source exports plain C launch functions that return
+  the ``cudaError_t`` of the launch; :func:`check` raises on a non-zero
+  one.
 - :func:`check_operands` / :func:`launch_on` — a wrapper checks that its
   operands share one card, then launches under that card (entered, so
   the launch goes there and not to the current card); :func:`count_launch`
@@ -110,44 +112,54 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _build_lock = threading.Lock()
 
 
+def _build(sources) -> None:
+    """Compile each of ``sources`` that has no up-to-date library yet (in
+    parallel, one ``nvcc`` each) and load them all into ``_LIBS``; the
+    caller holds ``_build_lock``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    targets = {}
+    procs = []
+    for src in sources:
+        out = BUILD_DIR / f"lib{src.stem}_{_digest(src)}.so"
+        targets[src.stem] = out
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        procs.append((src, tmp, out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )))
+    errors = []
+    for src, tmp, out, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{src.name}:\n{log}")
+        else:
+            os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    _LIBS.update({name: ctypes.CDLL(str(p)) for name, p in targets.items()})
+
+
 def build_all() -> Dict[str, ctypes.CDLL]:
-    """Compile every ``csrc/*.cu`` that has no up-to-date library yet (in
-    parallel, one ``nvcc`` each) and load them all; idempotent."""
+    """Compile every ``csrc/*.cu`` that has no up-to-date library yet and
+    load them all; idempotent."""
     with _build_lock:
-        if _LIBS:
-            return _LIBS
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        targets = {}
-        procs = []
-        for src in sorted(CSRC.glob("*.cu")):
-            out = BUILD_DIR / f"lib{src.stem}_{_digest(src)}.so"
-            targets[src.stem] = out
-            if out.exists():
-                continue
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-            procs.append((src, tmp, out, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-            )))
-        errors = []
-        for src, tmp, out, proc in procs:
-            log, _ = proc.communicate()
-            if proc.returncode != 0:
-                errors.append(f"{src.name}:\n{log}")
-            else:
-                os.replace(tmp, out)
-        if errors:
-            raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
-        _LIBS.update({name: ctypes.CDLL(str(p)) for name, p in targets.items()})
+        _build([src for src in sorted(CSRC.glob("*.cu")) if src.stem not in _LIBS])
         return _LIBS
 
 
 def kernel_lib(name: str) -> ctypes.CDLL:
-    """The loaded library built from ``csrc/<name>.cu`` (builds on first use)."""
-    libs = build_all()
-    if name not in libs:
-        raise RuntimeError(f"no kernel source csrc/{name}.cu")
-    return libs[name]
+    """The loaded library built from ``csrc/<name>.cu``; on first use it
+    builds that one source alone, so a caller of one kernel does not wait
+    for every kernel's ``nvcc``."""
+    with _build_lock:
+        if name not in _LIBS:
+            src = CSRC / f"{name}.cu"
+            if not src.exists():
+                raise RuntimeError(f"no kernel source csrc/{name}.cu")
+            _build([src])
+        return _LIBS[name]
 
 
 @functools.lru_cache(maxsize=None)
@@ -213,11 +225,13 @@ def launch_counters() -> Dict[str, object]:
     from .flash_decode import flash_decode
     from .intersect import intersect_count
     from .leaf_search import leaf_search
+    from .relax import edge_relax
     from .spmm import leaf_scan_reduce, leaf_spmm
 
     return {"leaf_search": leaf_search, "leaf_scan_reduce": leaf_scan_reduce,
             "leaf_spmm": leaf_spmm, "intersect_count": intersect_count,
-            "embedding_bag": embedding_bag, "flash_decode": flash_decode}
+            "embedding_bag": embedding_bag, "flash_decode": flash_decode,
+            "edge_relax": edge_relax}
 
 
 def check_operands(what: str, primary: torch.Tensor, *operands) -> None:

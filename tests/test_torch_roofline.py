@@ -253,7 +253,7 @@ def test_count_step_names_the_kernels_that_launched():
     assert c.kernel_launches == {"leaf_spmm": 1}
     assert set(runtime.launch_counters()) == {"leaf_search", "leaf_scan_reduce", "leaf_spmm",
                                               "intersect_count", "embedding_bag",
-                                              "flash_decode"}
+                                              "flash_decode", "edge_relax"}
 
 
 def test_count_step_through_autograd():
