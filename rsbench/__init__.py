@@ -7,8 +7,10 @@ One command runs one cell (a configuration under a traffic mix) once::
 The harness is driven by data.  ``BENCHMARK.json`` at the checkout's root
 names the cells and metrics; each configuration is
 ``rsbench/configs/<name>.json``, each traffic mix
-``rsbench/traffic/<name>.json`` and each per-layer metric a reader
-``rsbench/metrics/<name>.py``, all found by name (:mod:`rsbench.spec`).
+``rsbench/traffic/<name>.json``, each per-layer metric a reader
+``rsbench/metrics/<name>.py`` and each query kind beyond the six built
+into :mod:`rsbench.queries` a file ``rsbench/kinds/<name>.py``, all found
+by name (:mod:`rsbench.spec`).
 
 What measures is frozen here and imports nothing of the program: the
 R-MAT generator, the SSSP weights and the edge fingerprints

@@ -44,8 +44,9 @@ def main(argv=None) -> int:
         for role in roles:
             w = harness.window(state, args.seconds, False, control=role == "control")
             numbers = harness.check(state, w, harness.final_view(state))
+            limits = judge.limits(harness.file_kinds(cell))
             print(json.dumps({"workload": cell.name, "seed": seed, "role": role,
-                              "correct": judge.verdict(numbers), "numbers": numbers,
+                              "correct": judge.verdict(numbers, limits), "numbers": numbers,
                               "checks": len(w.checks),
                               "reads": harness.read_line(w)["completed_in_window"],
                               "seconds_so_far": time.perf_counter() - t0}), flush=True)

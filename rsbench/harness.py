@@ -18,6 +18,17 @@ the close keep their answers.  After the window the final view is pinned
 and fingerprinted, the device peak is read, the program's state is
 freed, and the plain reference judges what was kept
 (:mod:`rsbench.reference.judge`).
+
+A query kind that a mix names is one of the six built into
+:mod:`rsbench.queries`, or a file ``rsbench/kinds/<name>.py``
+(:class:`FileKind`; what the file defines is in
+:func:`rsbench.spec.kind_module`).  Adding a kind adds that file and
+edits nothing here: the kind's optional ``prepare`` runs in set-up, the
+client draws the query's operands from the seed before the read's clock
+starts, the check takes the fingerprint the
+kind's ``USES`` names beside what its ``capture`` keeps, and the judge
+adds the kind's ``NUMBERS``, held to their limits, to the run's result
+only where the mix names the kind.
 """
 
 from __future__ import annotations
@@ -74,12 +85,58 @@ class State:
 # ---------------------------------------------------------------------------
 # Set-up
 # ---------------------------------------------------------------------------
-def _kind_table(traffic: dict, control: bool) -> Dict[str, queries.Kind]:
+class FileKind:
+    """A query kind defined by its own file (:func:`spec.kind_module`); in
+    the control it runs the file's ``control``, which reads the view's
+    COO."""
+
+    def __init__(self, module, control: bool) -> None:
+        self.module = module
+        self.uses = "coo" if control else module.USES
+        self.run = module.control if control else module.run
+
+
+def _kind_table(cell: spec.Cell, control: bool) -> Dict[str, object]:
+    """The mix's kinds by name: the built-in ones and the kind files."""
     table = queries.CONTROL if control else queries.KINDS
-    unknown = set(traffic["kinds"]) - set(table)
+    out, unknown = {}, []
+    for name in cell.traffic["kinds"]:
+        has_file = spec.kind_path(name, cell.root).is_file()
+        if name in table and has_file:
+            raise KeyError(f"query kind {name!r} is both built in and a file")
+        if name in table:
+            out[name] = table[name]
+        elif has_file:
+            out[name] = FileKind(spec.kind_module(name, cell.root), control)
+        else:
+            unknown.append(name)
     if unknown:
-        raise KeyError(f"unknown query kinds {sorted(unknown)}; known: {sorted(table)}")
-    return {k: table[k] for k in traffic["kinds"]}
+        raise KeyError(f"unknown query kinds {sorted(unknown)}; known: {sorted(table)} "
+                       f"and the files of rsbench/kinds/")
+    return out
+
+
+def file_kinds(cell: spec.Cell) -> Dict[str, object]:
+    """The modules of the mix's kind files, by name."""
+    return {name: k.module for name, k in _kind_table(cell, False).items()
+            if isinstance(k, FileKind)}
+
+
+def _operands(kind, ctx: dict, root: int):
+    """What the query takes: a kind file's operands drawn from the seed and
+    the plan's ``root``; a built-in kind's root itself."""
+    return kind.module.draw(ctx, root) if isinstance(kind, FileKind) else root
+
+
+def _capture(kind, view, answer, ctx: dict, ops, control: bool) -> dict:
+    if not isinstance(kind, FileKind):
+        return queries.capture(kind, view, answer, ctx, control)
+    if kind.uses == "coo":
+        out = {"coo_fp": queries.coo_fingerprint(view)}
+    else:
+        out = {"tiles_fp": queries.tiles_fingerprint(view.to_leaf_blocks_device())}
+    out.update(kind.module.capture(view, answer, ctx, ops))
+    return out
 
 
 def _store_kwargs(config: dict) -> dict:
@@ -127,14 +184,18 @@ def setup(cell: spec.Cell, seed: int, device: torch.device, trace: bool,
     t = now()
     ops = gen.operands(n, int(traffic.get("spmm_d", 0)), seed, device)
     rng = np.random.default_rng(gen.subseed(seed, 6))
-    ctx = {"seed": int(seed), "n": n, "pagerank_iters": int(traffic["pagerank_iters"]),
-           "x": ops["x"], "H": ops["H"]}
+    ctx = {"seed": int(seed), "n": n, "pagerank_iters": int(traffic.get("pagerank_iters", 0)),
+           "x": ops["x"], "H": ops["H"], "config": cfg, "traffic": traffic,
+           "base_keys": base_keys, "device": device}
     srcs = (base_keys >> 32)
     heaviest = int(torch.bincount(srcs, minlength=n).argmax())
-    k = min(n, int(traffic["check"]["spmm_rows"]))
+    k = min(n, int(traffic["check"].get("spmm_rows", 0)))
     rows = np.union1d(rng.choice(n, size=k, replace=False), [heaviest])
     ctx["spmm_rows"] = torch.from_numpy(rows.astype(np.int64)).to(device)
     del srcs
+    for mod in file_kinds(cell).values():
+        if hasattr(mod, "prepare"):
+            mod.prepare(ctx)
     plans = gen.client_plans(traffic, base_keys, seed, PLAN_LENGTH)
     every = int(traffic["check"]["every"])
     check_pos = [gen.check_positions(p, every, rng) for p in plans]
@@ -149,7 +210,7 @@ def setup(cell: spec.Cell, seed: int, device: torch.device, trace: bool,
 
     state = State(cell=cell, seed=seed, device=device, store=store, base_keys=base_keys,
                   ctx=ctx, plans=plans, check_pos=check_pos, txns=txns)
-    kinds = _kind_table(traffic, control)
+    kinds = _kind_table(cell, control)
 
     # the cold views and every kind once (the kernels load or build here)
     t = now()
@@ -186,7 +247,7 @@ def _warm(state: State, kinds: Dict[str, queries.Kind]) -> None:
         h = store.begin_read()
         try:
             root = next(r for k, r in state.plans[0] if k == name)
-            kind.run(h.view, state.ctx, root)
+            kind.run(h.view, state.ctx, _operands(kind, state.ctx, root))
             sync(state.device)
         finally:
             store.end_read(h)
@@ -231,7 +292,7 @@ def window(state: State, seconds: float, trace: bool, control: bool = False) -> 
     """The measured window, and a wait for every query issued in it."""
     store, device, ctx = state.store, state.device, state.ctx
     traffic = state.cell.traffic
-    kinds = _kind_table(traffic, control)
+    kinds = _kind_table(state.cell, control)
     writer = traffic.get("writer")
     reads: List[dict] = []
     writes: List[dict] = []
@@ -242,10 +303,11 @@ def window(state: State, seconds: float, trace: bool, control: bool = False) -> 
     def client(ci: int) -> None:
         plan, check_at = state.plans[ci], set(state.check_pos[ci])
         for i, (name, root) in enumerate(plan):
+            kind = kinds[name]
+            ops = _operands(kind, ctx, root)  # before the read's clock
             t_issue = now()
             if t_issue >= t_end:
                 return
-            kind = kinds[name]
             rec = {"client": ci, "i": i, "kind": name, "t_issue": t_issue, "ts": None,
                    "t_done": None, "latency": math.inf, "assembled": False, "error": None}
             try:
@@ -258,14 +320,14 @@ def window(state: State, seconds: float, trace: bool, control: bool = False) -> 
             try:
                 rec["ts"] = int(h.ts)
                 before = _pred_ids(h.view)
-                answer = kind.run(h.view, ctx, root)
+                answer = kind.run(h.view, ctx, ops)
                 sync(device)
                 rec["t_done"] = now()
                 rec["assembled"] = _assembled(h.view, before)
                 # the sample, every view assembled anew, and the query in
                 # flight at the close
                 if i in check_at or rec["assembled"] or rec["t_done"] >= t_end:
-                    got = queries.capture(kind, h.view, answer, ctx, control)
+                    got = _capture(kind, h.view, answer, ctx, ops, control)
                     checks.append({"kind": name, "ts": rec["ts"], "root": root, "client": ci,
                                    "i": i, **got})
                     sync(device)
@@ -332,7 +394,7 @@ def window(state: State, seconds: float, trace: bool, control: bool = False) -> 
     w = Window(t0=t0, t_end=t_end, t_closed=t_closed, reads=reads, writes=writes,
                checks=checks, host=host)
     if trace:
-        w.trace, w.breakdown = _read_trace(state, w, counters_before)
+        w.trace, w.breakdown = _read_trace(state, w, counters_before, kinds)
     return w
 
 
@@ -356,7 +418,29 @@ def _registries(store) -> list:
     return [REGISTRY, store.registry]
 
 
-def _read_trace(state: State, w: Window, counters_before: dict):
+def _kernel_bounds(state: State, w: Window, kinds: dict) -> Dict[str, List[float]]:
+    """The least seconds of each kernel launch the window's queries made,
+    by kernel, from the operands each sent (kind files with ``bounds``;
+    drawn again from the seed and the plan), counted on a fresh pin after
+    the window."""
+    out: Dict[str, List[float]] = {}
+    done = [r for r in w.reads if r["error"] is None and isinstance(kinds[r["kind"]], FileKind)
+            and hasattr(kinds[r["kind"]].module, "bounds")]
+    if not done:
+        return out
+    h = state.store.begin_read()
+    try:
+        for r in done:
+            mod = kinds[r["kind"]].module
+            ops = mod.draw(state.ctx, state.plans[r["client"]][r["i"]][1])
+            for kernel, secs in mod.bounds(h.view, state.ctx, ops).items():
+                out.setdefault(kernel, []).extend(secs)
+    finally:
+        state.store.end_read(h)
+    return out
+
+
+def _read_trace(state: State, w: Window, counters_before: dict, kinds: dict):
     prof = state.profile
     lo, hi = prof.t_start_ns, prof.t_stop_ns
     events = prof.events()
@@ -371,6 +455,7 @@ def _read_trace(state: State, w: Window, counters_before: dict):
                                  counters_before),
         tile_groups=state.tile_groups,
         d=int(state.cell.traffic.get("spmm_d", 0)),
+        bounds=_kernel_bounds(state, w, kinds),
     )
     breakdown = {"device_ops": traceread.top_ops(events),
                  "idle_gaps": traceread.idle_gaps(events, lo, hi, host)}
@@ -431,7 +516,7 @@ def write_line(w: Window) -> Optional[dict]:
 def final_view(state: State) -> dict:
     """The view pinned after the window: every acknowledged write must be
     in it, in its COO and its tiles alike."""
-    uses = {queries.KINDS[k].uses for k in state.cell.traffic["kinds"]}
+    uses = {k.uses for k in _kind_table(state.cell, False).values()}
     h = state.store.begin_read()
     try:
         out = {"kind": "final", "ts": int(h.ts), "answer": None}
@@ -452,7 +537,8 @@ def check(state: State, w: Window, final: Optional[dict]) -> Dict[str, float]:
     # transaction deletes live edges, so a sound store always makes one)
     lost += sum(1 for t in w.writes if t["error"] is not None or not t["ts"])
     return judge_mod.judge(state.base_keys, state.acked, w.checks, state.ctx,
-                           list(state.cell.traffic["kinds"]), lost, final)
+                           list(state.cell.traffic["kinds"]), lost, final,
+                           files=file_kinds(state.cell))
 
 
 def free_program(state: State) -> None:
@@ -477,7 +563,7 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: torch.d
     free_program(state)
     t = now()
     numbers = check(state, w, final)
-    limits = judge_mod.limits()
+    limits = judge_mod.limits(file_kinds(cell))
     out = {
         "correct": judge_mod.verdict(numbers, limits),
         "attempted": sum(1 for r in w.reads if r["t_issue"] < w.t_end)

@@ -25,6 +25,11 @@ Numbers (a number is the worst over the checked queries of its kind):
   each tile's source vertex;
 - ``kinds_unchecked``: kinds of the mix with no checked answer;
 - ``answers_lost``: read queries and writes that failed.
+
+A query kind defined by its own file (``rsbench/kinds/<name>.py``) adds
+its ``NUMBERS``, each with its limit, where the mix names it: its
+``hold`` gives them for one checked answer, and they add up over the
+checks (wrong answers in all).
 """
 
 from __future__ import annotations
@@ -41,8 +46,16 @@ from . import graph
 LIMITS = Path(__file__).resolve().parent / "limits.json"
 
 
-def limits() -> Dict[str, float]:
-    return {k: float(v) for k, v in json.loads(LIMITS.read_text())["limits"].items()}
+def limits(files: Optional[Dict[str, object]] = None) -> Dict[str, float]:
+    """Each number's limit: ``limits.json``'s, and those of the kind files
+    ``files`` (kind name -> module)."""
+    out = {k: float(v) for k, v in json.loads(LIMITS.read_text())["limits"].items()}
+    for name, mod in (files or {}).items():
+        for number, limit in mod.NUMBERS.items():
+            if number in out:
+                raise KeyError(f"kind {name!r} names the number {number!r} a second time")
+            out[number] = float(limit)
+    return out
 
 
 def _worst(a: float, b: float) -> float:
@@ -69,16 +82,21 @@ def _wrong(got: torch.Tensor, want: torch.Tensor) -> int:
 
 
 def judge(base_keys: torch.Tensor, txns: List[tuple], checks: List[dict], ctx: dict,
-          kinds: List[str], lost: int, final: Optional[dict] = None) -> Dict[str, float]:
+          kinds: List[str], lost: int, final: Optional[dict] = None,
+          files: Optional[Dict[str, object]] = None) -> Dict[str, float]:
     """The numbers of one run.  ``txns`` are ``(commit_ts, inserts,
     deletes)``; each check has ``kind``, ``ts`` and what
-    :func:`rsbench.queries.capture` took (``final`` is the view pinned
-    after the window, with its fingerprints)."""
+    :func:`rsbench.queries.capture` or a kind file's ``capture`` took
+    (``final`` is the view pinned after the window, with its
+    fingerprints); ``files`` maps the mix's kind files to their modules."""
     n = ctx["n"]
+    files = files or {}
     numbers = {"views_wrong": 0, "bfs_wrong": 0, "wcc_wrong": 0, "sssp_wrong": 0,
                "pagerank_err": 0.0, "spmm_err": 0.0, "scan_err": 0.0,
                "kinds_unchecked": len(set(kinds) - {c["kind"] for c in checks}),
                "answers_lost": lost}
+    for mod in files.values():
+        numbers.update({k: 0 for k in mod.NUMBERS})
     views = list(checks) + ([final] if final is not None else [])
     for ts in sorted({v["ts"] for v in views}):
         keys = graph.replay(base_keys, txns, ts)
@@ -93,7 +111,12 @@ def judge(base_keys: torch.Tensor, txns: List[tuple], checks: List[dict], ctx: d
                     numbers["views_wrong"] += 1
             if v.get("answer") is not None:
                 try:
-                    _hold(numbers, v, src, dst, n, ctx)
+                    mod = files.get(v["kind"])
+                    if mod is None:
+                        _hold(numbers, v, src, dst, n, ctx)
+                    else:
+                        for k, value in mod.hold(v, src, dst, n, ctx).items():
+                            numbers[k] += value
                 except (ValueError, RuntimeError, IndexError):
                     numbers["answers_lost"] += 1  # an answer of the wrong form
         del src, dst

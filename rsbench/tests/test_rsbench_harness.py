@@ -43,6 +43,9 @@ def tiny(config: str, traffic: str) -> spec.Cell:
                      end_to_end=[], per_layer=[])
     cell.config["scale"] = 9
     cell.traffic["check"]["spmm_rows"] = 32
+    # the search kind's batches, cut to what a 1 s window on the CPU holds
+    if "edge_search_view" in cell.traffic:
+        cell.traffic["edge_search_view"]["sets"] = {"general": 128, "low": 128, "high": 128}
     if cell.traffic.get("writer"):
         cell.traffic["writer"]["rate_per_s"] = 4.0
     return cell

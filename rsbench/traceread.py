@@ -27,6 +27,9 @@ class Trace:
     counters: Dict[str, float]  # growth of each program counter over the window
     tile_groups: List[dict] = field(default_factory=list)  # see yardstick.kernel_bound_s
     d: int = 0  # SpMM's width
+    # the least seconds of each launch of a kernel, by kernel name, from the
+    # operands the window's queries sent (a query kind file's ``bounds``)
+    bounds: Dict[str, List[float]] = field(default_factory=dict)
 
     def durations(self, match: str) -> List[float]:
         """Seconds of each device event whose name holds ``match``."""

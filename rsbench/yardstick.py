@@ -1,11 +1,12 @@
 """The arithmetic every metric is read with: the H100's peaks, the bytes
-the two leaf kernels need, and the statistics of a run.
+the three leaf kernels need, and the statistics of a run.
 
 The byte counts are a frozen copy of ``chip_smoke.py``'s phase 2: each
 input byte read once, each output byte written once, for what the data
 needs (a tile's live prefix in 32-byte sectors, each distinct row of x
-or H once), so a kernel that reads more or a cache that hides reads both
-stay honest against the same bound.
+or H once, each distinct sector a search's probes touch once), so a
+kernel that reads more or a cache that hides reads both stay honest
+against the same bound.
 """
 
 from __future__ import annotations
@@ -59,6 +60,52 @@ def kernel_bound_s(kernel: str, group: dict, d: int) -> float:
         return bound_s(spmm_bytes(group["n_tiles"], group["sector_bytes"], group["distinct"], d),
                        group["live"] * d)
     raise KeyError(kernel)
+
+
+def search_sector_ids(rows, targets, index, length):
+    """(distinct sector ids, probes): ``leaf_search``'s binary search over
+    each query's live prefix (tile ``index[i]``, ``length`` ids) replayed,
+    every probe's 32-byte sector of ``rows`` kept once."""
+    import torch
+
+    width = rows.shape[1]
+    flat = rows.reshape(-1)
+    index = index.long()
+    lo = torch.zeros_like(index)
+    hi = length[index].long().clamp(0, width)
+    base = index * width
+    targets = targets.long()
+    ids, probes = [], 0
+    while True:
+        active = lo < hi
+        if not bool(active.any()):
+            break
+        mid = (lo + hi) >> 1
+        at = base[active] + mid[active]
+        probes += int(at.numel())
+        ids.append(torch.unique(at // (SECTOR // 4)))
+        below = torch.zeros_like(active)
+        below[active] = flat[at].long() < targets[active]
+        lo = torch.where(active & below, mid + 1, lo)
+        hi = torch.where(active & ~below, mid, hi)
+    return (torch.unique(torch.cat(ids)) if ids else base[:0]), probes
+
+
+def search_bytes(n_sectors: int, n_pairs: int, n_tiles: int) -> int:
+    """One ``leaf_search`` launch: the distinct sectors its probes touch;
+    per pair the target, the tile index, pos (4 bytes each) and found (1);
+    each distinct tile's length."""
+    return n_sectors * SECTOR + n_pairs * (4 * 3 + 1) + n_tiles * 4
+
+
+def launch_share_pct(bounds: Sequence[float], durations_s: Sequence[float]) -> Optional[float]:
+    """A kernel's share of its roofline, in %: the summed least time of its
+    launches over their summed device time.  None where no launch was
+    traced or the trace holds another number of launches than the
+    queries made (a launch missed or one not accounted for)."""
+    if not durations_s or len(bounds) != len(durations_s):
+        return None
+    return 100.0 * sum(bounds) / sum(durations_s)
 
 
 def roofline_pct(kernel: str, groups: Sequence[dict], d: int,
